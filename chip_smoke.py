@@ -1,0 +1,383 @@
+#!/usr/bin/env python3
+"""Chip smoke of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py        # from the root of a checkout
+
+Phases, each of which raises (and so exits non-zero) on failure:
+
+1. build  — compile every CUDA kernel of the port from this checkout's
+   sources (one nvcc per source, in parallel) and print ptxas's report;
+2. kernels — hold each kernel against its plain PyTorch version, bf16 and
+   f32, at the serving path's shapes, and time the kernel, the plain
+   version and one library call computing the same function;
+3. serve  — qwen2-1.5b at full width (bf16, 28 layers, random weights
+   from a seed): kernel-path vs plain-path prefill logits on a 995-token
+   probe, then 16 requests through ``repro_torch.serve.Engine`` with the
+   kernels' launch counters read around that run;
+4. f32    — the full-width model in f32: greedy tokens of the kernel path
+   and the plain path must be identical.
+
+Before the last line it prints ``{"kernels": [...]}`` and the card's name
+and power limit from nvidia-smi; the last line is ``{"ok": true,
+"device": {...}}``.  Every case and the serving numbers also go to
+``build/chip_smoke.json``.  Without a CUDA device, or outside a checkout, it
+exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import gc
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM datasheet peak
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+TOL = {"float32": (2e-5, 1e-4), "bfloat16": (3e-2, 3e-2)}   # atol, rtol
+FLASH_SEQS = (1, 77, 128, 995, 2047)
+RMS_ROWS = (1, 4, 995, 2047)
+PROBE_LEN = 995
+PROBE_ATOL = 0.1                # bf16 logits: a few ulps at |logit| < 8
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        raise RuntimeError(msg)
+
+
+def time_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured in a
+    CUDA graph and replayed between two events, so the host's launch
+    overhead (which exceeds a small kernel's run time) is left out."""
+    import torch
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, ops: float, dtype: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+# ---------------------------------------------------------------------------
+def phase_build():
+    from repro_torch.kernels import build
+    print("== phase 1: build", flush=True)
+    t0 = time.perf_counter()
+    info = build.build()
+    print(f"  built {sorted(info)} in {time.perf_counter() - t0:.1f} s "
+          f"(nvcc {' '.join(build.NVCC_FLAGS)})")
+    for name, rec in sorted(info.items()):
+        print(f"== {name}.cu -> {rec['path'].name}")
+        for line in rec["log"].splitlines():
+            if "ptxas" in line or "spill" in line:
+                print("  " + line.strip())
+
+
+def phase_kernels():
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa, ref
+    from repro_torch.kernels import rmsnorm as rms
+    print("== phase 2: kernels vs their plain versions", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = {"flash_attention": [], "rmsnorm": []}
+
+    def record(name, shape, dtype, got, want, fn, plain_fn, lib_fn, b):
+        ms, plain_ms, lib_ms = (time_ms(f) for f in (fn, plain_fn, lib_fn))
+        atol, rtol = TOL[dtype]
+        err = (got.float() - want.float()).abs()
+        ok = bool((err <= atol + rtol * want.float().abs()).all())
+        row = {"shape": shape, "dtype": dtype, "max_abs_err": err.max().item(),
+               "atol": atol, "rtol": rtol, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": b[0], "bound_by": b[1]}
+        cases[name].append(row)
+        print(f"  {name:15s} {shape:9s} {dtype:8s} err {row['max_abs_err']:.3e}"
+              f" (atol {atol}, rtol {rtol}) {'ok' if ok else 'FAIL'}  "
+              f"kernel {ms:.4f} ms  plain {plain_ms:.4f}  library "
+              f"{lib_ms:.4f}  bound {b[0]:.5f} ({b[1]})", flush=True)
+        check(ok, f"{name} {shape} {dtype}: kernel disagrees with its plain "
+                  f"version (max abs err {row['max_abs_err']:.3e})")
+
+    H, K, hd = 12, 2, 128                       # qwen2-1.5b's heads
+    for S in FLASH_SEQS:
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            q = torch.randn(1, S, H, hd, generator=gen, device="cuda").to(dt)
+            k = torch.randn(1, S, K, hd, generator=gen, device="cuda").to(dt)
+            v = torch.randn(1, S, K, hd, generator=gen, device="cuda").to(dt)
+            got = fa.flash_attention(q, k, v, causal=True)
+            want = ref.flash_attention_ref(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+            ops = 4 * H * hd * S * (S + 1) / 2      # causal pairs only
+            record("flash_attention", f"S={S}", dtype, got, want,
+                   lambda: fa.flash_attention(q, k, v, causal=True),
+                   lambda: ref.flash_attention_ref(q, k, v, True),
+                   lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=True, enable_gqa=True),
+                   bound(nbytes, ops, dtype))
+
+    d = 1536                                    # qwen2-1.5b's d_model
+    for rows in RMS_ROWS:
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            x = torch.randn(rows, d, generator=gen, device="cuda").to(dt)
+            w = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dt)
+            got = rms.rmsnorm(x, w, 1e-6)
+            want = ref.rmsnorm_ref(x, w, 1e-6)
+            torch.cuda.synchronize()
+            nbytes = (2 * x.numel() + w.numel()) * x.element_size()
+            record("rmsnorm", f"rows={rows}", dtype, got, want,
+                   lambda: rms.rmsnorm(x, w, 1e-6),
+                   lambda: ref.rmsnorm_ref(x, w, 1e-6),
+                   lambda: F.rms_norm(x, (d,), w, 1e-6),
+                   bound(nbytes, 4 * x.numel(), dtype))
+    return cases
+
+
+def _greedy(api, cfg, params, prompt, n_new):
+    """Batch-1 greedy decode through the api; returns tokens and each
+    step's top-2 logit gap."""
+    import torch
+    cache = api.init_cache(cfg, 1, len(prompt) + n_new)
+    logits, cache = api.prefill(params, cfg, cache, {"tokens": prompt[None]})
+    toks, gaps = [], []
+    for _ in range(n_new):
+        top = torch.topk(logits[0], 2).values
+        gaps.append((top[0] - top[1]).item())
+        toks.append(int(torch.argmax(logits[0])))
+        logits, cache = api.decode_step(
+            params, cfg, cache, torch.tensor([toks[-1]], device="cuda"))
+    return toks, gaps
+
+
+def phase_serve():
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import api, get_config
+    from repro_torch.serve import Engine, Request
+    print("== phase 3: serve qwen2-1.5b at full width", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()    # what phase 2 left allocated
+    cfg = get_config("qwen2-1.5b")
+    check(cfg.dtype == "bfloat16" and cfg.attn_impl == "flash",
+          f"unexpected config {cfg}")
+    t0 = time.perf_counter()
+    params = api.init(0, cfg, device="cuda")
+    torch.cuda.synchronize()
+    n_params = api.param_count(params)
+    check(n_params == cfg.param_count(), "param count")
+    print(f"  init {n_params:,} params ({cfg.num_layers} layers, d="
+          f"{cfg.d_model}, V={cfg.vocab_size}) in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    rng = np.random.default_rng(0)
+    probe = torch.as_tensor(rng.integers(0, cfg.vocab_size, PROBE_LEN),
+                            device="cuda")[None]
+    outs = {}
+    for label, c in (("kernels", cfg), ("plain", cfg.replace(use_kernels=False))):
+        cache = api.init_cache(c, 1, PROBE_LEN)
+        outs[label], _ = api.prefill(params, c, cache, {"tokens": probe})
+    diff = (outs["kernels"] - outs["plain"]).abs().max().item()
+    top = [int(outs[k][0, :cfg.vocab_size].argmax()) for k in outs]
+    print(f"  prefill logits (S={PROBE_LEN}): kernels vs plain max|diff| "
+          f"{diff:.4e} (atol {PROBE_ATOL}), top-1 {top[0]} vs {top[1]}")
+    check(bool(torch.isfinite(outs["kernels"][0, :cfg.vocab_size]).all()),
+          "non-finite prefill logits")
+    check(diff <= PROBE_ATOL and top[0] == top[1],
+          "kernel-path prefill disagrees with the plain path")
+
+    eng = Engine(cfg, params, slots=4, max_seq=2048, device="cuda")
+    lens = rng.integers(64, 1001, 16)
+    for uid, n in enumerate(lens):
+        eng.submit(Request(uid=uid, prompt=rng.integers(0, cfg.vocab_size, n),
+                           max_new_tokens=32))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    admit_ms, decode_ms, done = [], [], []
+    t0 = time.perf_counter()
+    while eng.queue or eng.active:
+        prefills, s0 = eng.prefills, time.perf_counter()
+        done += eng.step()
+        ms = (time.perf_counter() - s0) * 1e3
+        (admit_ms if eng.prefills != prefills else decode_ms).append(ms)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    toks = sum(len(r.output) for r in done)
+    steps = {"admit_steps": len(admit_ms), "admit_ms_total": sum(admit_ms),
+             "decode_only_steps": len(decode_ms),
+             "decode_only_ms_total": sum(decode_ms),
+             "decode_step_ms_median": statistics.median(decode_ms),
+             "decode_step_ms_max": max(decode_ms)}
+    print(f"  served {len(done)} requests, {toks} tokens in {wall:.3f} s "
+          f"({toks / wall:.1f} tok/s), prompt tokens {int(lens.sum())}, "
+          f"stats {eng.stats()}, peak {peak:.2f} GiB above the {base / 2**30:.2f} "
+          f"GiB phase 2 left, launches {launches}")
+    print(f"  steps: {steps}")
+    check(len(done) == 16 and all(len(r.output) == 32 for r in done),
+          "not every request got its 32 tokens")
+    check(all(0 <= t < cfg.vocab_size for r in done for t in r.output),
+          "token outside the vocabulary")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was never launched on the main path")
+    serve = {"requests": len(done), "new_tokens": toks, "wall_s": wall,
+             "tokens_per_s": toks / wall, "peak_gib": peak,
+             "prompt_tokens": int(lens.sum()), **steps,
+             "decode_profile": profile_decode(eng, rng)}
+    busy = serve["decode_profile"]["device_busy_ms"]
+    serve["idle_share"] = 1 - busy / steps["decode_step_ms_median"]
+    print(f"  device idle share of a decode step: {serve['idle_share']:.3f} "
+          f"({busy:.3f} ms busy of the {steps['decode_step_ms_median']:.1f} "
+          f"ms median step)")
+    check(busy > 0, "the profiler saw no device time in decode steps")
+    del params, eng
+    torch.cuda.empty_cache()
+    return launches, serve
+
+
+def profile_decode(eng, rng, steps: int = 5):
+    """Device busy ms of decode-only engine steps (4 active slots), from
+    torch.profiler, after the counted run.  The profiler slows the host,
+    so the idle share is taken against the unprofiled step time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import Request
+    for uid in range(eng.slots):
+        eng.submit(Request(uid=1000 + uid, max_new_tokens=16,
+                           prompt=rng.integers(0, eng.cfg.vocab_size, 128)))
+    eng.step()                                  # admits all slots
+    eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    out = {"step_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
+           "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
+           "top_kernels_ms_per_step": {
+               e.key[:60]: e.self_device_time_total / 1e3 / steps
+               for e in top}}
+    print(f"  decode profile ({steps} steps, 4 slots): {out}")
+    while eng.active or eng.queue:
+        eng.step()
+    return out
+
+
+def phase_f32():
+    import numpy as np
+    import torch
+    from repro_torch.models import api, get_config
+    print("== phase 4: full width in f32, kernel path vs plain path",
+          flush=True)
+    cfg = get_config("qwen2-1.5b").replace(dtype="float32")
+    params = api.init(0, cfg, device="cuda")
+    rng = np.random.default_rng(1)
+    for i, n in enumerate((211, 640)):
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, n),
+                                 device="cuda")
+        got, gaps = _greedy(api, cfg, params, prompt, 16)
+        want, _ = _greedy(api, cfg.replace(use_kernels=False), params,
+                          prompt, 16)
+        parted = next((j for j, (a, b) in enumerate(zip(got, want))
+                       if a != b), None)
+        print(f"  request {i} (prompt {n}): kernel path {got[:8]}..., "
+              f"identical: {parted is None}, smallest top-2 gap "
+              f"{min(gaps):.3e}")
+        if parted is not None:
+            raise RuntimeError(f"f32 paths part at step {parted}: top-2 "
+                               f"gap there {gaps[parted]:.3e}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device; nothing was run",
+              file=sys.stderr)
+        return 2
+    import repro_torch  # noqa: F401  (fails outside a checkout)
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 means f32
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    print(f"device: {name} x{torch.cuda.device_count()}, torch "
+          f"{torch.__version__}, cuda {torch.version.cuda}", flush=True)
+    t0 = time.perf_counter()
+    phase_build()
+    cases = phase_kernels()
+    launches, serve = phase_serve()
+    phase_f32()
+    main_shape = {"flash_attention": f"S={PROBE_LEN}", "rmsnorm": "rows=4"}
+    source = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                                  "src/repro/kernels/flash_attention.py:76"),
+              "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                          "src/repro/kernels/rmsnorm.py:27")}
+    kernels = []
+    for kname, rows in cases.items():
+        main_row = next(r for r in rows if r["shape"] == main_shape[kname]
+                        and r["dtype"] == "bfloat16")
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source[kname][0],
+            "replaces": source[kname][1], "launches": launches[kname],
+            **{k: main_row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms", "shape", "dtype")},
+            "max_abs_err_all_cases": max(r["max_abs_err"] for r in rows),
+            "cases": rows})
+    out = ROOT / "build"                        # git-ignored
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke.json").write_text(json.dumps(
+        {"device": name, "kernels": kernels, "serve": serve,
+         "seconds": time.perf_counter() - t0}, indent=1))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(f"  total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,40 @@
+"""Plain PyTorch versions of the ported kernels (port of
+``repro/kernels/ref.py``).
+
+Each function is the semantic definition its CUDA kernel must match.
+The wrappers in ``ops.py`` run them for tensors on the CPU; on the card
+``chip_smoke.py`` holds each kernel against them.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def flash_attention_ref(q, k, v, causal: bool = True):
+    """q (B,Sq,H,hd); k/v (B,Skv,K,hd) GQA -> (B,Sq,H,hd), f32 math.
+
+    The causal mask is aligned bottom-right (offset Skv-Sq), as in the
+    reference oracle; the kernel only takes Sq == Skv, where top-left
+    and bottom-right alignment agree."""
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    G = H // K
+    qg = q.reshape(B, Sq, K, G, hd).float()
+    s = torch.einsum("bskgh,btkh->bkgst", qg, k.float()) / math.sqrt(hd)
+    if causal:
+        mask = torch.ones(Sq, Skv, dtype=torch.bool,
+                          device=q.device).tril(Skv - Sq)
+        s = s.masked_fill(~mask, float("-inf"))
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh", w, v.float())
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def rmsnorm_ref(x, w, eps: float = 1e-6):
+    """x (..., d), w (d,) -> x * rsqrt(mean(x^2) + eps) * w, f32 math,
+    output in x's dtype."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)

@@ -1,0 +1,163 @@
+"""Decoder-only transformer LM, dense family (port of
+``repro/models/transformer.py``).
+
+Layer params are stacked on a leading axis, as in the reference; the
+forward loops over layers in Python where the reference scans.  The MoE
+FFN variant is ported with the MoE/enc-dec/VLM slice.
+"""
+from __future__ import annotations
+
+import typing
+
+import torch
+
+from repro_torch import resolve_device
+
+from . import layers as L
+from .base import ModelConfig
+
+Params = typing.Dict[str, typing.Any]
+
+
+def _dense_only(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet (the MoE "
+            "FFN comes with the MoE/enc-dec/VLM slice); the port runs "
+            "dense models")
+
+
+def _generator(seed, device) -> torch.Generator:
+    if isinstance(seed, torch.Generator):
+        if seed.device != device:
+            raise ValueError(f"generator on {seed.device}, params asked "
+                             f"for on {device}")
+        return seed
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+
+def init(seed, cfg: ModelConfig, device="cuda") -> Params:
+    """Random params from ``seed`` (an int or a ``torch.Generator`` on
+    ``device``): truncated-normal fan-in weights, N(0, 0.02) embedding,
+    zero biases, unit norms.  The draws differ from the reference's
+    ``jax.random`` ones; parity tests convert the reference's params
+    with ``repro_torch.convert.params_from_jax`` instead."""
+    _dense_only(cfg)
+    device = resolve_device(device)
+    gen = _generator(seed, device)
+    dt = cfg.torch_dtype
+    n = cfg.num_layers
+    p: Params = L.init_embed(gen, cfg)
+    p["layers"] = {
+        "attn": L.init_attention(gen, cfg, n),
+        "ln1": torch.ones((n, cfg.d_model), dtype=dt, device=device),
+        "ln2": torch.ones((n, cfg.d_model), dtype=dt, device=device),
+        "mlp": L.init_swiglu(gen, cfg, n),
+    }
+    p["ln_f"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
+    return p
+
+
+def _layer(tree, i: int):
+    """Layer ``i``'s slice of a stacked param tree."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _norm(h, w, cfg: ModelConfig):
+    return L.rms_norm(h, w, cfg.norm_eps, use_kernel=cfg.use_kernels)
+
+
+# --------------------------------------------------------------------------
+# forward (train / prefill)
+# --------------------------------------------------------------------------
+
+def _layer_fwd(lp: Params, h, cfg: ModelConfig, positions):
+    """One pre-norm block over the whole sequence. Returns (h, (k, v))."""
+    a, kv = L.attention_block(lp["attn"], _norm(h, lp["ln1"], cfg), cfg,
+                              positions=positions, causal=True)
+    h = h + a
+    return h + L.swiglu(lp["mlp"], _norm(h, lp["ln2"], cfg)), kv
+
+
+def _hidden(p: Params, cfg: ModelConfig, tokens):
+    """Final-normed hidden states (B,S,d) and per-layer (k, v)."""
+    _dense_only(cfg)
+    h = L.embed(p, tokens)
+    positions = torch.arange(h.shape[1], device=h.device)
+    kvs = []
+    for i in range(cfg.num_layers):
+        h, kv = _layer_fwd(_layer(p["layers"], i), h, cfg, positions)
+        kvs.append(kv)
+    return _norm(h, p["ln_f"], cfg), kvs
+
+
+def forward(p: Params, cfg: ModelConfig, tokens):
+    """tokens (B,S) int -> (logits (B,S,V) f32, aux); aux is 0.0 for a
+    dense model (the reference's MoE load-balance term)."""
+    h, _ = _hidden(p, cfg, tokens)
+    return L.unembed(p, h, cfg), 0.0
+
+
+def loss_fn(p: Params, cfg: ModelConfig, batch):
+    """Mean next-token NLL of ``batch`` ({"tokens", "targets"[, "mask"]});
+    a dense model adds no auxiliary term."""
+    h, _ = _hidden(p, cfg, batch["tokens"])
+    logits = L.unembed(p, h, cfg)
+    return L.cross_entropy(logits, batch["targets"], batch.get("mask"))
+
+
+# --------------------------------------------------------------------------
+# serving: prefill + single-token decode with static KV cache
+# --------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
+               device="cuda") -> dict:
+    _dense_only(cfg)
+    device = resolve_device(device)
+    dt = dtype or cfg.torch_dtype
+    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device),
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def prefill(p: Params, cfg: ModelConfig, tokens, cache: dict):
+    """Run the prompt, fill the cache IN PLACE (rows [0, S)), return the
+    logits of the last position and the cache with ``pos = S``."""
+    h, kvs = _hidden(p, cfg, tokens)
+    S = tokens.shape[1]
+    for i, (k, v) in enumerate(kvs):
+        cache["k"][i, :, :S] = k
+        cache["v"][i, :, :S] = v
+    logits = L.unembed(p, h[:, -1:], cfg)[:, 0]
+    pos = torch.tensor(S, dtype=torch.int32, device=cache["k"].device)
+    return logits, {"k": cache["k"], "v": cache["v"], "pos": pos}
+
+
+def decode_step(p: Params, cfg: ModelConfig, cache: dict, token):
+    """token (B,) int -> (logits (B,V) f32, cache).  One new token per
+    row attending to a KV cache of static length; ``cache["pos"]`` is a
+    scalar or (B,) per-slot positions.  The cache's k/v are updated in
+    place; the returned cache has ``pos + 1``."""
+    _dense_only(cfg)
+    B = token.shape[0]
+    h = L.embed(p, token[:, None])                     # (B,1,d)
+    pos = cache["pos"]
+    positions = pos[:, None] if pos.dim() else pos.expand(1, 1)
+    for i in range(cfg.num_layers):
+        lp = _layer(p["layers"], i)
+        a, _ = L.attention_block(
+            lp["attn"], _norm(h, lp["ln1"], cfg), cfg, positions=positions,
+            causal=False, kv_cache=(cache["k"][i], cache["v"][i]),
+            cache_pos=pos)
+        h = h + a
+        h = h + L.swiglu(lp["mlp"], _norm(h, lp["ln2"], cfg))
+    h = _norm(h, p["ln_f"], cfg)
+    logits = L.unembed(p, h, cfg)[:, 0]
+    return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}

@@ -41,3 +41,9 @@ def run_with_devices(n: int, code: str, timeout: int = 520) -> str:
 @pytest.fixture(scope="session")
 def devices8():
     return 8
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips (from inside the test) "
+        "where torch.cuda.is_available() is false")
