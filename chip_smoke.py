@@ -15,7 +15,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    probe, then 16 requests through ``repro_torch.serve.Engine`` with the
    kernels' launch counters read around that run;
 4. f32    — the full-width model in f32: greedy tokens of the kernel path
-   and the plain path must be identical.
+   and the plain path must be identical;
+5. serve  — phase 3 for mamba2-1.3b at full width (bf16, 48 layers): the
+   SSD kernel must run once per layer of every prefill;
+6. f32    — phase 4 for mamba2-1.3b.
 
 Before the last line it prints ``{"kernels": [...]}`` and the card's name
 and power limit from nvidia-smi; the last line is ``{"ok": true,
@@ -41,8 +44,25 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": (2e-5, 1e-4), "bfloat16": (3e-2, 3e-2)}   # atol, rtol
 FLASH_SEQS = (1, 77, 128, 995, 2047)
 RMS_ROWS = (1, 4, 995, 2047)
+RMS_ROWS_MAMBA = (4, 995)       # at mamba2-1.3b's d_inner, 4096
+# SSD chunk kernel at mamba2-1.3b's heads (H=64, P=64, N=128), (label, R, Q):
+# the 1000-token prompt (the main shape), a 77-token prompt, one token,
+# and a 2047-token prompt
+SSD_CASES = (("R=4,Q=256", 4, 256), ("R=1,Q=77", 1, 77), ("R=1,Q=1", 1, 1),
+             ("R=8,Q=256", 8, 256))
+SSD_TOL = (1e-4, 1e-4)          # tests/test_kernels.py's for this kernel
 PROBE_LEN = 995
 PROBE_ATOL = 0.1                # bf16 logits: a few ulps at |logit| < 8
+F32_PROBE_ATOL = 1e-3           # f32 logits: f32 sums in another order
+# mamba2-1.3b's bf16 probe cannot be held to PROBE_ATOL directly: over its
+# 48 layers of random weights, a change in the order of any f32 sum (the
+# rmsnorm kernel's alone) moves its bf16 logits by about 0.18, and the
+# plain path itself is about 0.2 from the same weights in f32
+# (tools/torch_probe_noise.py).  Its probe holds both bf16 paths to the
+# f32 plain path instead: the kernel path may be at most PROBE_ATOL
+# farther from it than the plain path is, and in f32 the kernel path
+# must agree with the plain path within F32_PROBE_ATOL.
+F32_ANCHORED_PROBE = ("mamba2-1.3b",)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -103,23 +123,34 @@ def phase_kernels():
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa, ref
     from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.kernels import ssd
     print("== phase 2: kernels vs their plain versions", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = {"flash_attention": [], "rmsnorm": []}
+    cases = {"flash_attention": [], "rmsnorm": [], "ssd_chunk_kernel": []}
 
-    def record(name, shape, dtype, got, want, fn, plain_fn, lib_fn, b):
-        ms, plain_ms, lib_ms = (time_ms(f) for f in (fn, plain_fn, lib_fn))
-        atol, rtol = TOL[dtype]
-        err = (got.float() - want.float()).abs()
-        ok = bool((err <= atol + rtol * want.float().abs()).all())
-        row = {"shape": shape, "dtype": dtype, "max_abs_err": err.max().item(),
+    def record(name, shape, dtype, got, want, fn, plain_fn, lib_fn, b,
+               tol=None):
+        """got/want: a tensor or a tuple of tensors; lib_fn None where no
+        one PyTorch call computes the function."""
+        ms, plain_ms = time_ms(fn), time_ms(plain_fn)
+        lib_ms = None if lib_fn is None else time_ms(lib_fn)
+        atol, rtol = tol or TOL[dtype]
+        pairs = list(zip(got, want)) if isinstance(got, tuple) \
+            else [(got, want)]
+        errs = [(g.float() - w.float()).abs() for g, w in pairs]
+        ok = all(bool((e <= atol + rtol * w.float().abs()).all())
+                 for e, (_, w) in zip(errs, pairs))
+        row = {"shape": shape, "dtype": dtype,
+               "max_abs_err": max(e.max().item() for e in errs),
                "atol": atol, "rtol": rtol, "ms": ms, "plain_ms": plain_ms,
                "library_ms": lib_ms, "bound_ms": b[0], "bound_by": b[1]}
         cases[name].append(row)
-        print(f"  {name:15s} {shape:9s} {dtype:8s} err {row['max_abs_err']:.3e}"
-              f" (atol {atol}, rtol {rtol}) {'ok' if ok else 'FAIL'}  "
-              f"kernel {ms:.4f} ms  plain {plain_ms:.4f}  library "
-              f"{lib_ms:.4f}  bound {b[0]:.5f} ({b[1]})", flush=True)
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f}"
+        print(f"  {name:16s} {shape:15s} {dtype:8s} err "
+              f"{row['max_abs_err']:.3e} (atol {atol}, rtol {rtol}) "
+              f"{'ok' if ok else 'FAIL'}  kernel {ms:.4f} ms  plain "
+              f"{plain_ms:.4f}  library {lib}  bound {b[0]:.5f} ({b[1]})",
+              flush=True)
         check(ok, f"{name} {shape} {dtype}: kernel disagrees with its plain "
                   f"version (max abs err {row['max_abs_err']:.3e})")
 
@@ -143,21 +174,54 @@ def phase_kernels():
                        qt, kt, vt, is_causal=True, enable_gqa=True),
                    bound(nbytes, ops, dtype))
 
-    d = 1536                                    # qwen2-1.5b's d_model
-    for rows in RMS_ROWS:
-        for dtype in ("bfloat16", "float32"):
-            dt = getattr(torch, dtype)
-            x = torch.randn(rows, d, generator=gen, device="cuda").to(dt)
-            w = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dt)
-            got = rms.rmsnorm(x, w, 1e-6)
-            want = ref.rmsnorm_ref(x, w, 1e-6)
-            torch.cuda.synchronize()
-            nbytes = (2 * x.numel() + w.numel()) * x.element_size()
-            record("rmsnorm", f"rows={rows}", dtype, got, want,
-                   lambda: rms.rmsnorm(x, w, 1e-6),
-                   lambda: ref.rmsnorm_ref(x, w, 1e-6),
-                   lambda: F.rms_norm(x, (d,), w, 1e-6),
-                   bound(nbytes, 4 * x.numel(), dtype))
+    # qwen2-1.5b's d_model; mamba2-1.3b's gated norm over d_inner
+    for d, rows_list in ((1536, RMS_ROWS), (4096, RMS_ROWS_MAMBA)):
+        for rows in rows_list:
+            for dtype in ("bfloat16", "float32"):
+                dt = getattr(torch, dtype)
+                x = torch.randn(rows, d, generator=gen, device="cuda").to(dt)
+                w = (1 + 0.1 * torch.randn(d, generator=gen,
+                                           device="cuda")).to(dt)
+                got = rms.rmsnorm(x, w, 1e-6)
+                want = ref.rmsnorm_ref(x, w, 1e-6)
+                torch.cuda.synchronize()
+                nbytes = (2 * x.numel() + w.numel()) * x.element_size()
+                shape = f"rows={rows}" + ("" if d == 1536 else f",d={d}")
+                record("rmsnorm", shape, dtype, got, want,
+                       lambda: rms.rmsnorm(x, w, 1e-6),
+                       lambda: ref.rmsnorm_ref(x, w, 1e-6),
+                       lambda: F.rms_norm(x, (d,), w, 1e-6),
+                       bound(nbytes, 4 * x.numel(), dtype))
+
+    # SSD at mamba2-1.3b's heads, f32 as on the model path, with B and C
+    # shared by the heads through a head stride of 0 as ops.ssd_chunked
+    # passes them.  No one PyTorch call computes this function, so its
+    # library time is null.
+    H, P, N = 64, 64, 128
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    for label, R, Q in SSD_CASES:
+        x = randn(R, H, Q, P)
+        dt = F.softplus(randn(R, H, Q))
+        A = -torch.exp(randn(H))
+        cs = torch.cumsum(dt * A[None, :, None], dim=-1)
+        Bm = randn(R, 1, Q, N).expand(R, H, Q, N)
+        Cm = randn(R, 1, Q, N).expand(R, H, Q, N)
+        args = (x, dt, cs, Bm, Cm)
+        got = ssd.ssd_chunk(*args)
+        want = ref.ssd_chunk_ref(*args)
+        torch.cuda.synchronize()
+        # bytes: x, dt, cs once, B and C once per chunk, y and the states;
+        # operations: the causal half of C.B^T and of att @ x, and B^T x
+        nbytes = 4 * (2 * R * H * Q * P + 2 * R * H * Q + 2 * R * Q * N
+                      + R * H * N * P)
+        pairs = Q * (Q + 1) / 2
+        ops = R * H * (2 * pairs * N + 2 * pairs * P + 2 * Q * N * P)
+        record("ssd_chunk_kernel", label, "float32", got, want,
+               lambda: ssd.ssd_chunk(*args),
+               lambda: ref.ssd_chunk_ref(*args), None,
+               bound(nbytes, ops, "float32"), tol=SSD_TOL)
     return cases
 
 
@@ -177,18 +241,24 @@ def _greedy(api, cfg, params, prompt, n_new):
     return toks, gaps
 
 
-def phase_serve():
+# the kernels each served model's path must launch
+PATH_KERNELS = {"qwen2-1.5b": ("flash_attention", "rmsnorm"),
+                "mamba2-1.3b": ("ssd_chunk_kernel", "rmsnorm")}
+
+
+def phase_serve(arch: str, phase: int):
     import numpy as np
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models import api, get_config
     from repro_torch.serve import Engine, Request
-    print("== phase 3: serve qwen2-1.5b at full width", flush=True)
+    print(f"== phase {phase}: serve {arch} at full width", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
-    base = torch.cuda.memory_allocated()    # what phase 2 left allocated
-    cfg = get_config("qwen2-1.5b")
-    check(cfg.dtype == "bfloat16" and cfg.attn_impl == "flash",
+    base = torch.cuda.memory_allocated()    # what earlier phases left
+    cfg = get_config(arch)
+    check(cfg.dtype == "bfloat16" and (cfg.family == "ssm"
+                                       or cfg.attn_impl == "flash"),
           f"unexpected config {cfg}")
     t0 = time.perf_counter()
     params = api.init(0, cfg, device="cuda")
@@ -212,8 +282,12 @@ def phase_serve():
           f"{diff:.4e} (atol {PROBE_ATOL}), top-1 {top[0]} vs {top[1]}")
     check(bool(torch.isfinite(outs["kernels"][0, :cfg.vocab_size]).all()),
           "non-finite prefill logits")
-    check(diff <= PROBE_ATOL and top[0] == top[1],
-          "kernel-path prefill disagrees with the plain path")
+    if arch in F32_ANCHORED_PROBE:
+        probe_row = probe_against_f32(api, cfg, params, probe, outs)
+    else:
+        check(diff <= PROBE_ATOL and top[0] == top[1],
+              "kernel-path prefill disagrees with the plain path")
+        probe_row = {"max_abs_diff": diff}
 
     eng = Engine(cfg, params, slots=4, max_seq=2048, device="cuda")
     lens = rng.integers(64, 1001, 16)
@@ -240,20 +314,28 @@ def phase_serve():
              "decode_only_ms_total": sum(decode_ms),
              "decode_step_ms_median": statistics.median(decode_ms),
              "decode_step_ms_max": max(decode_ms)}
+    prefills = eng.prefills
     print(f"  served {len(done)} requests, {toks} tokens in {wall:.3f} s "
           f"({toks / wall:.1f} tok/s), prompt tokens {int(lens.sum())}, "
           f"stats {eng.stats()}, peak {peak:.2f} GiB above the {base / 2**30:.2f} "
-          f"GiB phase 2 left, launches {launches}")
+          f"GiB earlier phases left, launches {launches}")
     print(f"  steps: {steps}")
     check(len(done) == 16 and all(len(r.output) == 32 for r in done),
           "not every request got its 32 tokens")
     check(all(0 <= t < cfg.vocab_size for r in done for t in r.output),
           "token outside the vocabulary")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was never launched on the main path")
-    serve = {"requests": len(done), "new_tokens": toks, "wall_s": wall,
-             "tokens_per_s": toks / wall, "peak_gib": peak,
-             "prompt_tokens": int(lens.sum()), **steps,
+    for name in PATH_KERNELS[arch]:
+        check(launches[name] > 0,
+              f"kernel {name} was never launched on the {arch} path")
+    if cfg.family == "ssm":
+        check(launches["ssd_chunk_kernel"] == cfg.num_layers * prefills,
+              f"ssd_chunk_kernel launched {launches['ssd_chunk_kernel']} "
+              f"times, not once per layer of {prefills} prefills")
+    serve = {"arch": arch, "probe": probe_row, "requests": len(done),
+             "new_tokens": toks,
+             "wall_s": wall, "tokens_per_s": toks / wall, "peak_gib": peak,
+             "prompt_tokens": int(lens.sum()), "prefills": prefills,
+             "launches": launches, **steps,
              "decode_profile": profile_decode(eng, rng)}
     busy = serve["decode_profile"]["device_busy_ms"]
     serve["idle_share"] = 1 - busy / steps["decode_step_ms_median"]
@@ -263,7 +345,39 @@ def phase_serve():
     check(busy > 0, "the profiler saw no device time in decode steps")
     del params, eng
     torch.cuda.empty_cache()
-    return launches, serve
+    return serve
+
+
+def probe_against_f32(api, cfg, params, probe, outs):
+    """The bf16 probe held to the same weights in f32 (see
+    F32_ANCHORED_PROBE); ``outs`` has the bf16 "kernels" and "plain"
+    logits.  Returns the distances."""
+    import torch
+    cast = (lambda t: {k: cast(v) for k, v in t.items()}
+            if isinstance(t, dict) else t.float())
+    p32, c32 = cast(params), cfg.replace(dtype="float32")
+    for label, c in (("f32 kernels", c32),
+                     ("f32 plain", c32.replace(use_kernels=False))):
+        cache = api.init_cache(c, 1, PROBE_LEN)
+        outs[label], _ = api.prefill(p32, c, cache, {"tokens": probe})
+    del p32
+    V = cfg.vocab_size
+    truth = outs["f32 plain"][0, :V]
+    dist = {k: (outs[k][0, :V] - truth).abs().max().item()
+            for k in ("kernels", "plain", "f32 kernels")}
+    top = {k: int(v[0, :V].argmax()) for k, v in outs.items()}
+    print(f"  against the f32 plain path (max|logit| "
+          f"{truth.abs().max().item():.3f}): bf16 kernels {dist['kernels']:.4e}"
+          f", bf16 plain {dist['plain']:.4e} (kernels may exceed plain by "
+          f"{PROBE_ATOL}), f32 kernels {dist['f32 kernels']:.4e} (atol "
+          f"{F32_PROBE_ATOL}); top-1 {top}")
+    check(len(set(top.values())) == 1, "the probe's top-1 token differs")
+    check(dist["f32 kernels"] <= F32_PROBE_ATOL,
+          "f32 kernel-path prefill disagrees with the f32 plain path")
+    check(dist["kernels"] <= dist["plain"] + PROBE_ATOL,
+          "bf16 kernel-path prefill is farther from f32 than the plain path")
+    return {"max_abs_diff": (outs["kernels"] - outs["plain"]).abs().max()
+            .item(), "against_f32": dist}
 
 
 def profile_decode(eng, rng, steps: int = 5):
@@ -301,13 +415,13 @@ def profile_decode(eng, rng, steps: int = 5):
     return out
 
 
-def phase_f32():
+def phase_f32(arch: str, phase: int):
     import numpy as np
     import torch
     from repro_torch.models import api, get_config
-    print("== phase 4: full width in f32, kernel path vs plain path",
-          flush=True)
-    cfg = get_config("qwen2-1.5b").replace(dtype="float32")
+    print(f"== phase {phase}: {arch} at full width in f32, kernel path vs "
+          f"plain path", flush=True)
+    cfg = get_config(arch).replace(dtype="float32")
     params = api.init(0, cfg, device="cuda")
     rng = np.random.default_rng(1)
     for i, n in enumerate((211, 640)):
@@ -343,20 +457,30 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     cases = phase_kernels()
-    launches, serve = phase_serve()
-    phase_f32()
-    main_shape = {"flash_attention": f"S={PROBE_LEN}", "rmsnorm": "rows=4"}
+    serve = {}
+    for arch, phase in (("qwen2-1.5b", 3), ("mamba2-1.3b", 5)):
+        serve[arch] = phase_serve(arch, phase)
+        phase_f32(arch, phase + 1)
+    # (shape, dtype) of each kernel's row in the kernels line
+    main_case = {"flash_attention": (f"S={PROBE_LEN}", "bfloat16"),
+                 "rmsnorm": ("rows=4", "bfloat16"),
+                 "ssd_chunk_kernel": (SSD_CASES[0][0], "float32")}
     source = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                   "src/repro/kernels/flash_attention.py:76"),
               "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
-                          "src/repro/kernels/rmsnorm.py:27")}
+                          "src/repro/kernels/rmsnorm.py:27"),
+              "ssd_chunk_kernel": ("src/repro_torch/kernels/csrc/ssd.cu",
+                                   "src/repro/kernels/ssd.py:50")}
     kernels = []
     for kname, rows in cases.items():
-        main_row = next(r for r in rows if r["shape"] == main_shape[kname]
-                        and r["dtype"] == "bfloat16")
+        main_row = next(r for r in rows
+                        if (r["shape"], r["dtype"]) == main_case[kname])
+        by_path = {arch: run["launches"][kname]
+                   for arch, run in serve.items()}
         kernels.append({
             "name": kname, "route": "cuda", "source": source[kname][0],
-            "replaces": source[kname][1], "launches": launches[kname],
+            "replaces": source[kname][1], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             **{k: main_row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by",
                                         "library_ms", "shape", "dtype")},

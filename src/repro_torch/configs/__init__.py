@@ -2,4 +2,4 @@
 ``repro.configs``).  Importing this package populates the registry; use
 ``repro_torch.models.get_config(name)`` or the ``--arch`` flag of
 ``repro_torch.launch.serve``."""
-from . import qwen2_1_5b  # noqa: F401
+from . import mamba2_1_3b, qwen2_1_5b  # noqa: F401

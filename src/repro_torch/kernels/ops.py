@@ -12,13 +12,15 @@ from __future__ import annotations
 import typing
 
 import torch
+import torch.nn.functional as F
 
 from . import flash_attention as _fa
 from . import ref
 from . import rmsnorm as _rms
+from . import ssd as _ssd
 
-__all__ = ["flash_attention", "rmsnorm", "launch_counts", "reset_launches",
-           "ref"]
+__all__ = ["flash_attention", "rmsnorm", "ssd_chunk_kernel", "ssd_chunked",
+           "launch_counts", "reset_launches", "ref"]
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -51,9 +53,72 @@ def rmsnorm(x, w, eps: float = 1e-6):
     return out
 
 
+def ssd_chunk_kernel(x, dt, cs, Bm, Cm):
+    """Intra-chunk SSD.  x (R,H,Q,P); dt/cs (R,H,Q); Bm/Cm (R,H,Q,N) ->
+    (y_diag (R,H,Q,P) f32, states (R,H,N,P) f32); on the card f32 inputs
+    only (``kernels/ssd.py`` says what else the kernel takes)."""
+    if _on_cpu(x, dt, cs, Bm, Cm):
+        return ref.ssd_chunk_ref(x, dt, cs, Bm, Cm)
+    out = _ssd.ssd_chunk(x, dt, cs, Bm, Cm)
+    ssd_chunk_kernel.launches += 1
+    return out
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, chunk: int = 256, initial_state=None,
+                return_state: bool = False):
+    """Chunked SSD whose intra-chunk part runs on ``ssd_chunk_kernel``
+    (port of ``repro/kernels/ops.py::ssd_pallas``, with the arguments of
+    ``repro/models/ssm.py::ssd_scan``, which it replaces in the model).
+
+    x (B,L,H,P); dt (B,L,H) after softplus; A (H,); Bm/Cm (B,L,G=1,N);
+    initial_state (B,H,N,P) or None -> y (B,L,H,P) f32, and the final
+    state (B,H,N,P) f32 with ``return_state``.  Any L: the sequence is
+    padded to a multiple of Q = min(chunk, L) with dt = 0, which adds
+    nothing to the states, and the padded rows of y are dropped."""
+    Bsz, L, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if G != 1:
+        raise ValueError(f"ssd_chunked takes a single B/C group, got G={G}")
+    Q = min(chunk, L)
+    pad = (-L) % Q
+    x, dt, Bm, Cm = (t.float() for t in (x, dt, Bm, Cm))
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
+    C = (L + pad) // Q
+    R = Bsz * C
+    # (R=B*C, H, Q, .) views; B and C keep a head stride of 0
+    xr = x.reshape(Bsz, C, Q, H, P).permute(0, 1, 3, 2, 4).reshape(R, H, Q, P)
+    dtr = dt.reshape(Bsz, C, Q, H).permute(0, 1, 3, 2).reshape(R, H, Q)
+    cs = torch.cumsum(dtr * A.float()[None, :, None], dim=-1)
+    Br = Bm.reshape(R, 1, Q, N).expand(R, H, Q, N)
+    Cr = Cm.reshape(R, 1, Q, N).expand(R, H, Q, N)
+    y_diag, states = ssd_chunk_kernel(xr, dtr, cs, Br, Cr)
+
+    # ---- inter-chunk recurrence (C steps of one (N,P) state per head) ----
+    states = states.reshape(Bsz, C, H, N, P)
+    chunk_decay = torch.exp(cs[..., -1]).reshape(Bsz, C, H)
+    s = (initial_state.float() if initial_state is not None else
+         torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=x.device))
+    s_in = []
+    for c in range(C):
+        s_in.append(s)
+        s = chunk_decay[:, c, :, None, None] * s + states[:, c]
+    s_in = torch.stack(s_in, dim=1)                        # (B,C,H,N,P)
+    # ---- off-diagonal term: the state entering each chunk --------------
+    y_off = torch.einsum("bcqn,bchnp,bchq->bchqp", Cm.reshape(Bsz, C, Q, N),
+                         s_in, torch.exp(cs).reshape(Bsz, C, H, Q))
+    y = (y_diag.reshape(Bsz, C, H, Q, P) + y_off).permute(0, 1, 3, 2, 4) \
+        .reshape(Bsz, C * Q, H, P)[:, :L]
+    return (y, s) if return_state else y
+
+
 flash_attention.launches = 0
 rmsnorm.launches = 0
-_WRAPPERS = (flash_attention, rmsnorm)
+ssd_chunk_kernel.launches = 0
+_WRAPPERS = (flash_attention, rmsnorm, ssd_chunk_kernel)
 
 
 def launch_counts() -> typing.Dict[str, int]:

@@ -38,3 +38,23 @@ def rmsnorm_ref(x, w, eps: float = 1e-6):
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+def ssd_chunk_ref(x, dt, cs, Bm, Cm):
+    """Intra-chunk SSD.  x (R,H,Q,P); dt/cs (R,H,Q); Bm/Cm (R,H,Q,N)
+    -> (y_diag (R,H,Q,P) f32, states (R,H,N,P) f32), f32 math:
+
+        att[i,j] = (C_i . B_j) * exp(cs_i - cs_j) * dt_j   (i >= j, else 0)
+        y_diag   = att @ x
+        states   = (B * exp(cs_last - cs) * dt)^T @ x
+    """
+    x, dt, cs, Bm, Cm = (t.float() for t in (x, dt, cs, Bm, Cm))
+    Q = x.shape[2]
+    seg = cs[..., :, None] - cs[..., None, :]              # (R,H,Q,Q) i,j
+    mask = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    decay = torch.where(mask, torch.exp(seg), 0.0)
+    att = torch.einsum("rhin,rhjn->rhij", Cm, Bm) * decay * dt[..., None, :]
+    y = torch.einsum("rhij,rhjp->rhip", att, x)
+    w = torch.exp(cs[..., -1:] - cs) * dt                  # (R,H,Q)
+    s = torch.einsum("rhqn,rhq,rhqp->rhnp", Bm, w, x)
+    return y, s

@@ -3,6 +3,9 @@
 
   python -m repro_torch.launch.serve --arch qwen2-1.5b --device cuda \
       --requests 16 --slots 4 --max-seq 2048 --max-new 32
+
+``--arch`` takes any ported config (``repro_torch.models.list_archs()``),
+e.g. mamba2-1.3b.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""Unified model facade (port of ``repro/models/api.py``), dense family
-only.  The same entry points as the reference:
+"""Unified model facade (port of ``repro/models/api.py``) for the dense
+family (``transformer``) and the SSM family (``mamba_lm``).  The same
+entry points as the reference:
 
     init(seed, cfg, device)                     -> params
     loss(params, cfg, batch)                    -> scalar f32
@@ -10,15 +11,15 @@ only.  The same entry points as the reference:
 
 ``init`` and ``init_cache`` place their tensors on ``device`` ("cuda"
 unless the caller asks for the CPU); the others run where their inputs
-lie.  The other families raise NotImplementedError until their slices
-are ported.
+lie.  The other families (moe, hybrid, encdec, vlm) raise
+NotImplementedError until their slices are ported.
 """
 from __future__ import annotations
 
-from . import transformer
+from . import mamba_lm, transformer
 from .base import ModelConfig
 
-_FAMILY = {"dense": transformer}
+_FAMILY = {"dense": transformer, "ssm": mamba_lm}
 
 
 def module_for(cfg: ModelConfig):

@@ -6,9 +6,10 @@ reference's; what differs:
 
 * ``torch_dtype`` replaces ``jnp_dtype``;
 * ``use_kernels`` replaces the reference's unread ``use_pallas``: True
-  routes ``rms_norm`` and ``attn_impl="flash"`` through the hand-written
-  CUDA kernels, False through their plain PyTorch versions (the parity
-  oracle the chip smoke compares the kernel path with);
+  routes ``rms_norm``, ``attn_impl="flash"`` and the SSM blocks' SSD
+  through the hand-written CUDA kernels, False through their plain
+  PyTorch versions (the parity oracle the chip smoke compares the kernel
+  path with);
 * the sharding and training knobs (``remat``, ``scan_layers``,
   ``seq_shard_activations``, ``fsdp``, ``microbatches``) are left out
   until the slices that port sharding and training need them.

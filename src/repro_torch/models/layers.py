@@ -29,6 +29,24 @@ Params = typing.Dict[str, typing.Any]
 # init helpers
 # --------------------------------------------------------------------------
 
+def generator(seed, device: torch.device) -> torch.Generator:
+    """``seed`` (an int, or a ``torch.Generator`` already on ``device``)
+    as a generator on ``device``."""
+    if isinstance(seed, torch.Generator):
+        if seed.device != device:
+            raise ValueError(f"generator on {seed.device}, params asked "
+                             f"for on {device}")
+        return seed
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def layer_slice(tree, i: int):
+    """Layer ``i``'s slice of a param tree stacked on a leading axis."""
+    if isinstance(tree, dict):
+        return {k: layer_slice(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
 def dense_init(gen: torch.Generator, shape, dtype, scale: float = None):
     """Truncated-normal (+-2 sigma) fan-in init; stacked shapes keep the
     per-slice fan-in (``shape[-2]``)."""
@@ -51,9 +69,11 @@ def embed_init(gen: torch.Generator, shape, dtype):
 
 def rms_norm(x, weight, eps: float = 1e-6, use_kernel: bool = True):
     """x * rsqrt(mean(x^2) + eps) * weight in f32 math, output in x's
-    dtype: the rmsnorm kernel, or its plain version."""
+    dtype: the rmsnorm kernel (which takes rows in contiguous memory, so
+    a strided view such as ``h[:, -1:]`` is copied first), or its plain
+    version."""
     if use_kernel:
-        return kops.rmsnorm(x, weight, eps)
+        return kops.rmsnorm(x.contiguous(), weight, eps)
     return kref.rmsnorm_ref(x, weight, eps)
 
 

@@ -27,15 +27,6 @@ def _dense_only(cfg: ModelConfig) -> None:
             "dense models")
 
 
-def _generator(seed, device) -> torch.Generator:
-    if isinstance(seed, torch.Generator):
-        if seed.device != device:
-            raise ValueError(f"generator on {seed.device}, params asked "
-                             f"for on {device}")
-        return seed
-    return torch.Generator(device=device).manual_seed(int(seed))
-
-
 # --------------------------------------------------------------------------
 # init
 # --------------------------------------------------------------------------
@@ -48,7 +39,7 @@ def init(seed, cfg: ModelConfig, device="cuda") -> Params:
     with ``repro_torch.convert.params_from_jax`` instead."""
     _dense_only(cfg)
     device = resolve_device(device)
-    gen = _generator(seed, device)
+    gen = L.generator(seed, device)
     dt = cfg.torch_dtype
     n = cfg.num_layers
     p: Params = L.init_embed(gen, cfg)
@@ -60,13 +51,6 @@ def init(seed, cfg: ModelConfig, device="cuda") -> Params:
     }
     p["ln_f"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
     return p
-
-
-def _layer(tree, i: int):
-    """Layer ``i``'s slice of a stacked param tree."""
-    if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
 
 
 def _norm(h, w, cfg: ModelConfig):
@@ -92,7 +76,7 @@ def _hidden(p: Params, cfg: ModelConfig, tokens):
     positions = torch.arange(h.shape[1], device=h.device)
     kvs = []
     for i in range(cfg.num_layers):
-        h, kv = _layer_fwd(_layer(p["layers"], i), h, cfg, positions)
+        h, kv = _layer_fwd(L.layer_slice(p["layers"], i), h, cfg, positions)
         kvs.append(kv)
     return _norm(h, p["ln_f"], cfg), kvs
 
@@ -151,7 +135,7 @@ def decode_step(p: Params, cfg: ModelConfig, cache: dict, token):
     pos = cache["pos"]
     positions = pos[:, None] if pos.dim() else pos.expand(1, 1)
     for i in range(cfg.num_layers):
-        lp = _layer(p["layers"], i)
+        lp = L.layer_slice(p["layers"], i)
         a, _ = L.attention_block(
             lp["attn"], _norm(h, lp["ln1"], cfg), cfg, positions=positions,
             causal=False, kv_cache=(cache["k"][i], cache["v"][i]),

@@ -26,6 +26,11 @@ from repro_torch.models import api
 from repro_torch.models.base import ModelConfig
 
 
+# cache leaf -> batch axis (the reference's table for the dense and SSM
+# layouts; the hybrid layout comes with its slice)
+_BATCH_AXIS = {"k": 1, "v": 1, "ssm": 1, "conv": 1}
+
+
 @dataclasses.dataclass
 class Request:
     uid: int
@@ -92,7 +97,8 @@ class Engine:
             S = int(prompt.shape[1])
             # A mini cache of the prompt's own length: the reference
             # splices max_seq rows, but rows past S are never read before
-            # a decode step writes them (the mask stops at pos).
+            # a decode step writes them (the mask stops at pos).  An SSM
+            # cache has no sequence axis, so its length does not matter.
             mini = api.init_cache(self.cfg, 1, S, device=self.device)
             logits, mini = api.prefill(self.params, self.cfg, mini,
                                        {"tokens": prompt})
@@ -112,9 +118,16 @@ class Engine:
             self.remaining[slot] = req.max_new_tokens - 1
 
     def _splice(self, mini: dict, slot: int, prompt_len: int) -> None:
-        """Write the batch=1 prefill cache into slot ``slot``."""
-        for key in ("k", "v"):
-            self.cache[key][:, slot, :prompt_len] = mini[key][:, 0]
+        """Write the batch=1 prefill cache into slot ``slot``: every leaf
+        but ``pos``, along its batch axis.  A leaf with a sequence axis
+        (k, v) fills its first ``prompt_len`` rows, as the mini cache has
+        no more; an SSM state or conv tail overwrites the whole slot."""
+        for key, small in mini.items():
+            if key == "pos":
+                continue
+            small = small.select(_BATCH_AXIS[key], 0)
+            big = self.cache[key].select(_BATCH_AXIS[key], slot)
+            big[tuple(slice(0, n) for n in small.shape)] = small
         self.cache["pos"][slot] = prompt_len
         self._pos[slot] = prompt_len
 

@@ -8,13 +8,18 @@ from repro.models import api as japi
 from repro.models import get_config as jget_config
 from repro_torch.convert import params_from_jax
 
-_RANDOMISED = {"bq", "bk", "bv", "ln1", "ln2", "ln_f"}
+# leaves the reference inits to a constant: base 1 (norm weights, the SSM
+# skip D) or base 0 (biases)
+_RANDOMISED = {"bq": 0.0, "bk": 0.0, "bv": 0.0, "conv_xb": 0.0,
+               "conv_bcb": 0.0, "ln1": 1.0, "ln2": 1.0, "ln_f": 1.0,
+               "ln": 1.0, "norm_w": 1.0, "D": 1.0}
 
 
 def shared_params(arch="qwen2-1.5b-smoke", seed=0):
     """(jax params, torch params on the CPU) of one model.  The reference
-    inits the qkv biases to 0 and the norm weights to 1, which would test
-    nothing, so those leaves are redrawn with numpy before converting."""
+    inits biases to 0 and norm weights (and the SSM skip D) to 1, which
+    would test nothing, so those leaves are redrawn with numpy before
+    converting."""
     cfg = jget_config(arch)
     tree = jax.tree.map(np.asarray, japi.init(jax.random.PRNGKey(seed), cfg))
     rng = np.random.default_rng(seed)
@@ -24,9 +29,8 @@ def shared_params(arch="qwen2-1.5b-smoke", seed=0):
             if isinstance(v, dict):
                 redraw(v)
             elif k in _RANDOMISED:
-                base = 1.0 if k.startswith("ln") else 0.0
-                node[k] = (base + 0.3 * rng.standard_normal(v.shape)
-                           ).astype(v.dtype)
+                node[k] = (_RANDOMISED[k] + 0.3 * rng.standard_normal(
+                    v.shape)).astype(v.dtype)
     redraw(tree)
     jparams = jax.tree.map(jnp.asarray, tree)
     return jparams, params_from_jax(tree, device="cpu")

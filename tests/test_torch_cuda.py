@@ -7,7 +7,8 @@ torch sees no GPU.  On a machine with one (and without JAX):
 
 Tolerances: f32 atol 2e-5 / rtol 1e-4 for attention and 1e-5 for
 rmsnorm (sums in another order, no TF32); bf16 3e-2 (one bf16 rounding
-of the output at another place)."""
+of the output at another place); SSD and the f32 mamba prefill 1e-4
+(tests/test_kernels.py's for the SSD kernel)."""
 import numpy as np
 import pytest
 
@@ -91,3 +92,63 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     q = _rand((1, 8, 4, 48), 8, torch.float32, cuda)        # hd 48
     with pytest.raises(ValueError, match="hd"):
         ops.flash_attention(q, q[:, :, :2], q[:, :, :2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,H,Q,P,N,shared", [
+    (2, 4, 128, 64, 32, True),      # small, B/C shared by the heads
+    (1, 3, 77, 16, 8, False),       # ragged Q, one chunk, N below a tile
+    (3, 2, 200, 32, 130, True),     # ragged Q over 4 i-tiles, N over 3 tiles
+    (1, 64, 1, 64, 128, True)])     # one token at mamba2-1.3b's heads
+def test_ssd_kernel_matches_plain(cuda, R, H, Q, P, N, shared):
+    x = _rand((R, H, Q, P), 10, torch.float32, cuda)
+    dt = torch.nn.functional.softplus(_rand((R, H, Q), 11, torch.float32,
+                                            cuda))
+    A = -torch.exp(_rand((H,), 12, torch.float32, cuda))
+    cs = torch.cumsum(dt * A[None, :, None], dim=-1)
+    G = 1 if shared else H
+    Bm = _rand((R, G, Q, N), 13, torch.float32, cuda).expand(R, H, Q, N)
+    Cm = _rand((R, G, Q, N), 14, torch.float32, cuda).expand(R, H, Q, N)
+    n = ops.ssd_chunk_kernel.launches
+    y, s = ops.ssd_chunk_kernel(x, dt, cs, Bm, Cm)
+    torch.cuda.synchronize()
+    assert ops.ssd_chunk_kernel.launches == n + 1
+    assert y.shape == (R, H, Q, P) and s.shape == (R, H, N, P)
+    want_y, want_s = ref.ssd_chunk_ref(x, dt, cs, Bm, Cm)
+    _assert_close(y, want_y, dict(atol=1e-4, rtol=1e-4))
+    _assert_close(s, want_s, dict(atol=1e-4, rtol=1e-4))
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
+    x = _rand((1, 2, 8, 16), 15, torch.float32, cuda)
+    dt = _rand((1, 2, 8), 16, torch.float32, cuda)
+    Bm = _rand((1, 2, 8, 8), 17, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        ops.ssd_chunk_kernel(x.bfloat16(), dt, dt, Bm, Bm)
+    x_strided = _rand((1, 2, 16, 8), 18, torch.float32, cuda).transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.ssd_chunk_kernel(x_strided, dt, dt, Bm, Bm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [5, 77, 300])
+def test_mamba_prefill_kernel_path_matches_plain(cuda, S):
+    """A small f32 mamba2 prefill (chunk 64, so 300 tokens take five
+    chunks with a short last one) on the kernel path against the plain
+    path: logits and the cached states."""
+    from repro_torch.models import api, get_config
+    cfg = get_config("mamba2-1.3b-smoke").replace(ssm_chunk=64)
+    params = api.init(0, cfg, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, S), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(S))
+    outs = []
+    n = ops.ssd_chunk_kernel.launches
+    for c in (cfg, cfg.replace(use_kernels=False)):
+        cache = api.init_cache(c, 2, S, device=cuda)
+        outs.append(api.prefill(params, c, cache, {"tokens": toks}))
+    assert ops.ssd_chunk_kernel.launches == n + cfg.num_layers
+    (got, got_c), (want, want_c) = outs
+    _assert_close(got, want, dict(atol=1e-4, rtol=1e-4))
+    for key in ("ssm", "conv"):
+        _assert_close(got_c[key], want_c[key], dict(atol=1e-4, rtol=1e-4))
