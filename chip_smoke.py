@@ -8,8 +8,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
 1. build  — compile every CUDA kernel of the port from this checkout's
    sources (one nvcc per source, in parallel) and print ptxas's report;
 2. kernels — hold each kernel against its plain PyTorch version, bf16 and
-   f32, at the serving path's shapes, and time the kernel, the plain
-   version and one library call computing the same function;
+   f32, at the serving and MGMark paths' shapes, and time the kernel, the
+   plain version and one library call computing the same function;
 3. serve  — qwen2-1.5b at full width (bf16, 28 layers, random weights
    from a seed): kernel-path vs plain-path prefill logits on a 995-token
    probe, then 16 requests through ``repro_torch.serve.Engine`` with the
@@ -18,13 +18,18 @@ Phases, each of which raises (and so exits non-zero) on failure:
    and the plain path must be identical;
 5. serve  — phase 3 for mamba2-1.3b at full width (bf16, 48 layers): the
    SSD kernel must run once per layer of every prefill;
-6. f32    — phase 4 for mamba2-1.3b.
+6. f32    — phase 4 for mamba2-1.3b;
+7. mgmark — the seven MGMark workloads in U-mode and D-mode on a 4-shard
+   mesh on the card at ``default_size(4)`` (``repro_torch.launch.mgmark``):
+   each correct against its oracle, D-mode collective bytes equal to the
+   count from the shapes, the stencil and bitonic-stage kernels launched
+   as many times as the SC and BS programs call them, device ms per run.
 
 Before the last line it prints ``{"kernels": [...]}`` and the card's name
 and power limit from nvidia-smi; the last line is ``{"ok": true,
-"device": {...}}``.  Every case and the serving numbers also go to
-``build/chip_smoke.json``.  Without a CUDA device, or outside a checkout, it
-exits non-zero and prints no result.
+"device": {...}}``.  Every case, the serving numbers and the MGMark rows
+also go to ``build/chip_smoke.json``.  Without a CUDA device, or outside
+a checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -51,6 +56,34 @@ RMS_ROWS_MAMBA = (4, 995)       # at mamba2-1.3b's d_inner, 4096
 SSD_CASES = (("R=4,Q=256", 4, 256), ("R=1,Q=77", 1, 77), ("R=1,Q=1", 1, 1),
              ("R=8,Q=256", 8, 256))
 SSD_TOL = (1e-4, 1e-4)          # tests/test_kernels.py's for this kernel
+# stencil2d, (H, W, K, dtype): SC's 4096^2 image (the main shape), bf16,
+# K=5, and a ragged image; f32 atol 1e-5 (the same products in the same
+# order, the kernel's contracted into FMAs)
+STENCIL_CASES = ((4096, 4096, 3, "float32"), (1024, 1024, 3, "bfloat16"),
+                 (4096, 4096, 5, "float32"), (1000, 1000, 3, "float32"))
+STENCIL_TOL = {"float32": (1e-5, 0.0), "bfloat16": (3e-2, 3e-2)}
+# bitonic_stage, (L, size, dist, offset, dtype): BS's 131072 (U-mode's
+# length; the first is the main shape) at three stages, a D-mode shard's
+# stage with its offset, int32 keys, and a card-filling 2^24; exact
+BITONIC_CASES = ((131072, 2, 1, 0, "float32"),
+                 (131072, 4096, 1024, 0, "float32"),
+                 (131072, 131072, 32, 0, "float32"),
+                 (32768, 65536, 512, 32768, "float32"),
+                 (131072, 64, 16, 0, "int32"),
+                 (2 ** 24, 2 ** 24, 1024, 0, "float32"))
+# MGMark on a 4-shard mesh at default_size(4): D-mode collective bytes per
+# device from the shapes (aes none; km one (16,32)+(16,) f32 psum; fir 15
+# f32; sc 2 rows of 4096 f32; gd 8 psums of 256 f32; mt (4,2048,2048)
+# f32; bs 3 cross-shard stages of 32768 f32), and the kernels each
+# program must launch (bs: 132 stages with dist < 2048 per 32768 or
+# 131072 elements)
+MGMARK_SHARDS = 4
+MGMARK_BYTES = {"aes": 0, "km": 2112, "fir": 60, "sc": 32768, "gd": 8192,
+                "mt": 67108864, "bs": 393216}
+MGMARK_LAUNCHES = {("sc", "umode"): {"stencil2d": 1},
+                   ("sc", "dmode"): {"stencil2d": 4},
+                   ("bs", "umode"): {"bitonic_stage": 132},
+                   ("bs", "dmode"): {"bitonic_stage": 528}}
 PROBE_LEN = 995
 PROBE_ATOL = 0.1                # bf16 logits: a few ulps at |logit| < 8
 F32_PROBE_ATOL = 1e-3           # f32 logits: f32 sums in another order
@@ -126,7 +159,9 @@ def phase_kernels():
     from repro_torch.kernels import ssd
     print("== phase 2: kernels vs their plain versions", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = {"flash_attention": [], "rmsnorm": [], "ssd_chunk_kernel": []}
+    from repro_torch.kernels import bitonic, stencil
+    cases = {"flash_attention": [], "rmsnorm": [], "ssd_chunk_kernel": [],
+             "stencil2d": [], "bitonic_stage": []}
 
     def record(name, shape, dtype, got, want, fn, plain_fn, lib_fn, b,
                tol=None):
@@ -222,6 +257,44 @@ def phase_kernels():
                lambda: ssd.ssd_chunk(*args),
                lambda: ref.ssd_chunk_ref(*args), None,
                bound(nbytes, ops, "float32"), tol=SSD_TOL)
+
+    # stencil2d: bytes img once in, once out (and the K*K weights); 2 K^2
+    # operations per output, f32 math whatever img's dtype.  Library:
+    # cuDNN's correlation (TF32 off in main).
+    for H, W, K, dtype in STENCIL_CASES:
+        dt = getattr(torch, dtype)
+        img = randn(H, W).to(dt)
+        kern = randn(K, K).to(dt)
+        got = stencil.stencil2d(img, kern)
+        want = ref.stencil2d_ref(img, kern)
+        torch.cuda.synchronize()
+        nbytes = (2 * H * W + K * K) * img.element_size()
+        record("stencil2d", f"{H}x{W},K={K}", dtype, got, want,
+               lambda: stencil.stencil2d(img, kern),
+               lambda: ref.stencil2d_ref(img, kern),
+               lambda: F.conv2d(img[None, None], kern[None, None],
+                                padding=K // 2),
+               bound(nbytes, 2 * K * K * H * W, "float32"),
+               tol=STENCIL_TOL[dtype])
+
+    # bitonic_stage: bytes x once in, once out; one compare and two
+    # selects per pair, counted as one operation per element at the f32
+    # CUDA-core rate (int32 too).  No one PyTorch call computes a stage.
+    for L, size, dist, offset, dtype in BITONIC_CASES:
+        if dtype == "int32":
+            x = torch.randint(-2 ** 31, 2 ** 31 - 1, (L,), generator=gen,
+                              device="cuda", dtype=torch.int32)
+        else:
+            x = randn(L)
+        got = bitonic.bitonic_stage(x, dist, size, offset)
+        want = ref.bitonic_stage_ref(x, dist, size, offset)
+        torch.cuda.synchronize()
+        shape = f"L={L},size={size},dist={dist}" + (
+            f",offset={offset}" if offset else "")
+        record("bitonic_stage", shape, dtype, got, want,
+               lambda: bitonic.bitonic_stage(x, dist, size, offset),
+               lambda: ref.bitonic_stage_ref(x, dist, size, offset), None,
+               bound(2 * L * x.element_size(), L, "float32"), tol=(0.0, 0.0))
     return cases
 
 
@@ -442,6 +515,56 @@ def phase_f32(arch: str, phase: int):
     torch.cuda.empty_cache()
 
 
+def phase_mgmark():
+    """Phase 7.  Returns (per-run rows, launches of the checked runs by
+    kernel)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mgmark
+    from repro_torch.patterns import Mesh
+    print(f"== phase 7: MGMark, U-mode and D-mode on a {MGMARK_SHARDS}-shard "
+          f"mesh on the card", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = Mesh(["cuda"] * MGMARK_SHARDS)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    reports = mgmark.run_suite(mesh)
+    wall = time.perf_counter() - t0
+    total = ops.launch_counts()
+    # each report's launches are its checked run's; the warm call and the
+    # timed repeats launch the same kernels again
+    path = {k: sum(r.launches[k] for r in reports) for k in total}
+    rows = []
+    for rep in reports:
+        print("  " + rep.row(), flush=True)
+        rows.append({k: getattr(rep, k) for k in (
+            "name", "mode", "pattern", "correct", "max_err",
+            "collective_bytes", "bytes_by_kind", "device", "launches",
+            "device_ms")})
+        check(rep.correct, f"MGMark {rep.name} {rep.mode}: output disagrees "
+                           f"with the oracle (max abs err {rep.max_err})")
+        check(rep.device_ms is not None and rep.device.startswith("cuda"),
+              f"MGMark {rep.name} {rep.mode} did not run on the card")
+        want = MGMARK_LAUNCHES.get((rep.name, rep.mode), {})
+        got = {k: v for k, v in rep.launches.items() if v}
+        check(got == want, f"MGMark {rep.name} {rep.mode} launched {got}, "
+                           f"expected {want}")
+        if rep.mode == "dmode":
+            check(rep.collective_bytes == MGMARK_BYTES[rep.name],
+                  f"MGMark {rep.name} D-mode moved {rep.collective_bytes} B "
+                  f"per device, expected {MGMARK_BYTES[rep.name]}")
+        else:
+            check(rep.collective_bytes is None, "U-mode bytes are not None")
+    calls = 2 + mgmark.REPEATS
+    check(all(total[k] == path[k] * calls for k in total),
+          f"launch counters {total} are not {calls} x the checked runs' "
+          f"{path}")
+    print(f"  {len(reports)} runs in {wall:.1f} s (inputs, oracles and "
+          f"timing included); kernel launches of the checked runs {path}")
+    return rows, path
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -461,22 +584,33 @@ def main() -> int:
     for arch, phase in (("qwen2-1.5b", 3), ("mamba2-1.3b", 5)):
         serve[arch] = phase_serve(arch, phase)
         phase_f32(arch, phase + 1)
+    mgmark_rows, mgmark_launches = phase_mgmark()
     # (shape, dtype) of each kernel's row in the kernels line
+    H, W, K, _ = STENCIL_CASES[0]
+    L, size, dist, _, _ = BITONIC_CASES[0]
     main_case = {"flash_attention": (f"S={PROBE_LEN}", "bfloat16"),
                  "rmsnorm": ("rows=4", "bfloat16"),
-                 "ssd_chunk_kernel": (SSD_CASES[0][0], "float32")}
+                 "ssd_chunk_kernel": (SSD_CASES[0][0], "float32"),
+                 "stencil2d": (f"{H}x{W},K={K}", "float32"),
+                 "bitonic_stage": (f"L={L},size={size},dist={dist}",
+                                   "float32")}
     source = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                   "src/repro/kernels/flash_attention.py:76"),
               "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                           "src/repro/kernels/rmsnorm.py:27"),
               "ssd_chunk_kernel": ("src/repro_torch/kernels/csrc/ssd.cu",
-                                   "src/repro/kernels/ssd.py:50")}
+                                   "src/repro/kernels/ssd.py:50"),
+              "stencil2d": ("src/repro_torch/kernels/csrc/stencil.cu",
+                            "src/repro/kernels/stencil.py:46"),
+              "bitonic_stage": ("src/repro_torch/kernels/csrc/bitonic.cu",
+                                "src/repro/kernels/bitonic.py:40")}
     kernels = []
     for kname, rows in cases.items():
         main_row = next(r for r in rows
                         if (r["shape"], r["dtype"]) == main_case[kname])
         by_path = {arch: run["launches"][kname]
                    for arch, run in serve.items()}
+        by_path["mgmark"] = mgmark_launches[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": source[kname][0],
             "replaces": source[kname][1], "launches": sum(by_path.values()),
@@ -490,7 +624,8 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"device": name, "kernels": kernels, "serve": serve,
-         "seconds": time.perf_counter() - t0}, indent=1))
+         "mgmark": mgmark_rows, "seconds": time.perf_counter() - t0},
+        indent=1))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -7,11 +7,13 @@ kernel's name, built by build.py at first use):
   * rmsnorm         — fused normalisation (every rms_norm of the models)
   * ssd             — Mamba2 intra-chunk SSD (``ops.ssd_chunk_kernel``,
                       under ``ops.ssd_chunked`` in every SSM prefill)
+  * stencil         — K x K 2-D stencil (``ops.stencil2d``, MGMark SC)
+  * bitonic         — one bitonic compare-exchange stage
+                      (``ops.bitonic_stage``, MGMark BS)
 
 The wrappers are not re-exported here, so that ``kernels.rmsnorm``,
-``kernels.flash_attention`` and ``kernels.ssd`` stay the launcher
-modules.  The TPU kernels stencil and bitonic are ported in later
-slices.
+``kernels.flash_attention``, ``kernels.ssd``, ``kernels.stencil`` and
+``kernels.bitonic`` stay the launcher modules.
 """
 from . import ops, ref
 

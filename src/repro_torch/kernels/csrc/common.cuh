@@ -9,7 +9,7 @@
 namespace repro_torch {
 
 // dtype codes passed from Python (kernels/build.py's callers).
-enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+enum DType : int { kFloat32 = 0, kBFloat16 = 1, kInt32 = 2 };
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) {

@@ -14,13 +14,16 @@ import typing
 import torch
 import torch.nn.functional as F
 
+from . import bitonic as _bitonic
 from . import flash_attention as _fa
 from . import ref
 from . import rmsnorm as _rms
 from . import ssd as _ssd
+from . import stencil as _stencil
 
 __all__ = ["flash_attention", "rmsnorm", "ssd_chunk_kernel", "ssd_chunked",
-           "launch_counts", "reset_launches", "ref"]
+           "stencil2d", "bitonic_stage", "launch_counts", "reset_launches",
+           "ref"]
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -115,10 +118,46 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int = 256, initial_state=None,
     return (y, s) if return_state else y
 
 
+def stencil2d(img, kern):
+    """img (H, W), kern (K, K) -> same-padded K x K stencil (H, W), zero
+    outside the image, f32 sums, in img's dtype; on the card f32 or bf16
+    img and K in {3, 5} (``kernels/stencil.py``)."""
+    if _on_cpu(img, kern):
+        return ref.stencil2d_ref(img, kern)
+    out = _stencil.stencil2d(img, kern)
+    stencil2d.launches += 1
+    return out
+
+
+def bitonic_stage(x, dist: int, size: int, block: int = 2048,
+                  offset: int = 0):
+    """One compare-exchange stage of x (L,): partner i ^ dist, ascending
+    iff ((offset + i) & size) == 0, with the TPU API's checks: block is
+    cut to L, dist < block, L % block == 0, block % (2 * dist) == 0, and
+    dist a power of two (the pairing (i, i + dist) is i ^ dist only
+    then).  ``offset`` is the global index of x[0] (a shard's start).  On
+    the card f32 or int32 x (``kernels/bitonic.py``)."""
+    L = x.shape[0]
+    block = min(block, L)
+    if not (1 <= dist < block and L % block == 0
+            and block % (2 * dist) == 0 and dist & (dist - 1) == 0):
+        raise ValueError(f"bitonic_stage takes a power-of-two dist < block "
+                         f"<= L with L % block == 0 and block % (2 * dist) "
+                         f"== 0, got dist={dist}, block={block}, L={L}")
+    if _on_cpu(x):
+        return ref.bitonic_stage_ref(x, dist, size, offset)
+    out = _bitonic.bitonic_stage(x, dist, size, offset)
+    bitonic_stage.launches += 1
+    return out
+
+
 flash_attention.launches = 0
 rmsnorm.launches = 0
 ssd_chunk_kernel.launches = 0
-_WRAPPERS = (flash_attention, rmsnorm, ssd_chunk_kernel)
+stencil2d.launches = 0
+bitonic_stage.launches = 0
+_WRAPPERS = (flash_attention, rmsnorm, ssd_chunk_kernel, stencil2d,
+             bitonic_stage)
 
 
 def launch_counts() -> typing.Dict[str, int]:

@@ -58,3 +58,48 @@ def ssd_chunk_ref(x, dt, cs, Bm, Cm):
     w = torch.exp(cs[..., -1:] - cs) * dt                  # (R,H,Q)
     s = torch.einsum("rhqn,rhq,rhqp->rhnp", Bm, w, x)
     return y, s
+
+
+def stencil2d_ref(img, kern):
+    """img (H, W), kern (K, K) -> same-padded K x K correlation (H, W):
+    out[y, x] = sum over (dy, dx) of kern[dy, dx] * img[y+dy-r, x+dx-r],
+    r = K // 2, zero outside the image; f32 sums in (dy, dx) order,
+    output in img's dtype."""
+    K = kern.shape[0]
+    r = K // 2
+    H, W = img.shape
+    pad = torch.nn.functional.pad(img.float(), (r, r, r, r))
+    kf = kern.float()
+    out = torch.zeros((H, W), dtype=torch.float32, device=img.device)
+    for dy in range(K):
+        for dx in range(K):
+            out = out + kf[dy, dx] * pad[dy:dy + H, dx:dx + W]
+    return out.to(img.dtype)
+
+
+def bitonic_stage_ref(x, dist: int, size: int, offset: int = 0):
+    """One compare-exchange stage over x (L,): partner = i ^ dist,
+    ascending iff ((offset + i) & size) == 0.  ``offset`` is the global
+    index of x[0], so that a shard sees the direction of its global
+    indices; at 0 this is the reference's stage unchanged."""
+    idx = torch.arange(x.shape[0], device=x.device)
+    partner = idx ^ dist
+    other = x[partner]
+    asc = ((idx + offset) & size) == 0
+    take_min = (idx < partner) == asc
+    return torch.where(take_min, torch.minimum(x, other),
+                       torch.maximum(x, other))
+
+
+def bitonic_sort_ref(x):
+    """Full bitonic sort of x (L,), L a power of two, from
+    ``bitonic_stage_ref``."""
+    L = x.shape[0]
+    size = 2
+    while size <= L:
+        dist = size // 2
+        while dist >= 1:
+            x = bitonic_stage_ref(x, dist, size)
+            dist //= 2
+        size *= 2
+    return x

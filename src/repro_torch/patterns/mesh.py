@@ -1,0 +1,166 @@
+"""A mesh of shards held by one process, with its collectives.
+
+The port's counterpart of three reference pieces together, so it has no
+single reference module: ``jax.sharding.Mesh`` over a one-axis ``"dev"``
+mesh, ``repro.compat.shard_map`` / ``axis_size``, and the ``jax.lax``
+collectives the MGMark patterns use (``ppermute``, ``psum``,
+``all_to_all``).
+
+A D-mode program is written over lists of shard tensors, shard ``i`` on
+``mesh.devices[i]``; on one card that is ``[cuda:0] * 4``, and the same
+code takes four cards.  Every collective copies its payload into new
+tensors (it never aliases a shard) and adds the bytes one device sends to
+the mesh's counter under ``core/hlo.py``'s kind names, counted as the
+reference's HLO parser counts them (operand bytes per device), so the
+counts compare like with like with the reference's ``collective_bytes``.
+Nothing here moves a shard to the CPU unless the mesh's devices are the
+CPU's.
+"""
+from __future__ import annotations
+
+import typing
+
+import torch
+
+DEV = "dev"          # the mesh axis; as a spec: split along dimension 0
+
+Shards = typing.List[torch.Tensor]
+
+
+class Mesh:
+    """``devices``: one ``torch.device`` (or name) per shard."""
+
+    def __init__(self, devices: typing.Sequence):
+        self.devices = [torch.device(d) for d in devices]
+        if not self.devices:
+            raise ValueError("a mesh needs at least one device")
+        self.bytes_by_kind: typing.Dict[str, float] = {}
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def collective_bytes(self) -> float:
+        return sum(self.bytes_by_kind.values())
+
+    def reset_bytes(self) -> None:
+        self.bytes_by_kind = {}
+
+    def _count(self, kind: str, xs: Shards) -> None:
+        per_device = xs[0].numel() * xs[0].element_size()
+        self.bytes_by_kind[kind] = self.bytes_by_kind.get(kind, 0.0) \
+            + float(per_device)
+
+    def _check(self, xs: Shards) -> None:
+        if len(xs) != self.size:
+            raise ValueError(f"{len(xs)} shards on a mesh of {self.size}")
+        shapes = {tuple(x.shape) for x in xs}
+        if len(shapes) != 1:
+            raise ValueError(f"shards of different shapes: {shapes}")
+
+    # ---- placement (shard_map's in_specs / out_specs) -----------------
+    def shard(self, x: torch.Tensor) -> Shards:
+        """Split ``x`` along dimension 0 (where every MGMark input is
+        split) into ``size`` equal shards (``P("dev")``), shard i a copy
+        on device i."""
+        if x.shape[0] % self.size:
+            raise ValueError(f"dimension 0 of {tuple(x.shape)} does not "
+                             f"split over {self.size} shards")
+        return [c.to(d, copy=True).contiguous()
+                for c, d in zip(x.chunk(self.size), self.devices)]
+
+    def replicate(self, x: torch.Tensor) -> Shards:
+        """A copy of ``x`` on every device (``P(None)``)."""
+        return [x.to(d, copy=True) for d in self.devices]
+
+    def put(self, x, spec) -> Shards:
+        x = torch.as_tensor(x)
+        return self.shard(x) if spec == DEV else self.replicate(x)
+
+    def unshard(self, xs: Shards, spec) -> torch.Tensor:
+        """The global value on ``devices[0]``: shards concatenated for
+        ``DEV``, shard 0 for a replicated result."""
+        self._check(xs)
+        if spec == DEV:
+            return torch.cat([x.to(self.devices[0]) for x in xs])
+        return xs[0]
+
+    # ---- collectives ----------------------------------------------------
+    def ppermute(self, xs: Shards, perm) -> Shards:
+        """``jax.lax.ppermute``: shard ``dst`` receives a copy of shard
+        ``src`` for each pair ``(src, dst)`` of ``perm``; a shard that no
+        pair targets receives zeros."""
+        self._check(xs)
+        out: typing.List[typing.Optional[torch.Tensor]] = [None] * self.size
+        for src, dst in perm:
+            if out[dst] is not None:
+                raise ValueError(f"ppermute: two sources for shard {dst}")
+            out[dst] = xs[src].to(self.devices[dst], copy=True)
+        self._count("collective-permute", xs)
+        return [o if o is not None else
+                torch.zeros_like(xs[i], device=self.devices[i])
+                for i, o in enumerate(out)]
+
+    def psum(self, xs: Shards) -> Shards:
+        """``jax.lax.psum``: every shard receives the sum of all shards
+        (summed in shard order on ``devices[0]``, one result for all)."""
+        self._check(xs)
+        total = xs[0].to(self.devices[0], copy=True)
+        for x in xs[1:]:
+            total += x.to(self.devices[0])
+        self._count("all-reduce", xs)
+        return [total.to(d, copy=True) for d in self.devices]
+
+    def all_to_all(self, xs: Shards, split_axis: int = 0,
+                   concat_axis: int = 0) -> Shards:
+        """``jax.lax.all_to_all(..., tiled=False)``: dimension
+        ``split_axis`` (of length ``size``) is split, piece q of shard p
+        goes to shard q, and shard q stacks what it receives, in sender
+        order, along a new dimension ``concat_axis``."""
+        self._check(xs)
+        if xs[0].shape[split_axis] != self.size:
+            raise ValueError(f"all_to_all: dimension {split_axis} of "
+                             f"{tuple(xs[0].shape)} is not the mesh size "
+                             f"{self.size}")
+        out = [torch.stack([x.select(split_axis, q).to(d)
+                            for x in xs], dim=concat_axis).contiguous()
+               for q, d in enumerate(self.devices)]
+        self._count("all-to-all", xs)
+        return out
+
+
+class Program:
+    """One mode of a pattern: ``fn`` with where its arguments and result
+    live.  ``in_specs`` None is the global program (U-mode): arguments
+    whole on ``devices[0]``, result as ``fn`` returns it.  Otherwise
+    (D-mode, made by ``shard_map``) ``fn`` takes one list of shards per
+    argument, placed by ``in_specs`` (``DEV`` or None each), and returns
+    a list of shards that ``out_specs`` gathers."""
+
+    def __init__(self, fn, mesh: Mesh, in_specs=None, out_specs=None):
+        self.fn, self.mesh = fn, mesh
+        self.in_specs, self.out_specs = in_specs, out_specs
+
+    def place(self, *args):
+        if self.in_specs is None:
+            return [torch.as_tensor(a).to(self.mesh.devices[0])
+                    for a in args]
+        if len(args) != len(self.in_specs):
+            raise ValueError(f"{len(args)} arguments for "
+                             f"{len(self.in_specs)} in_specs")
+        return [self.mesh.put(a, s) for a, s in zip(args, self.in_specs)]
+
+    def __call__(self, *placed):
+        return self.fn(*placed)
+
+    def gather(self, out) -> torch.Tensor:
+        if self.in_specs is None:
+            return out
+        return self.mesh.unshard(out, self.out_specs)
+
+
+def shard_map(fn, mesh: Mesh, in_specs, out_specs) -> Program:
+    """Port of ``shard_map(local, mesh, in_specs, out_specs)`` for a
+    ``fn`` written over lists of shards (``Program``)."""
+    return Program(fn, mesh, tuple(in_specs), out_specs)

@@ -152,3 +152,86 @@ def test_mamba_prefill_kernel_path_matches_plain(cuda, S):
     _assert_close(got, want, dict(atol=1e-4, rtol=1e-4))
     for key in ("ssm", "conv"):
         _assert_close(got_c[key], want_c[key], dict(atol=1e-4, rtol=1e-4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,W,K", [(128, 64, 3), (256, 128, 5), (100, 70, 3),
+                                   (1000, 1000, 3), (33, 65, 5), (1, 1, 3),
+                                   (2, 200, 5)])
+def test_stencil_kernel_matches_plain(cuda, dtype, H, W, K):
+    """f32 atol 1e-5: the same products in the same (dy, dx) order, the
+    kernel's contracted into FMAs; bf16 3e-2: one rounding of the output."""
+    dt = getattr(torch, dtype)
+    img, kern = _rand((H, W), 20, dt, cuda), _rand((K, K), 21, dt, cuda)
+    n = ops.stencil2d.launches
+    got = ops.stencil2d(img, kern)
+    torch.cuda.synchronize()
+    assert ops.stencil2d.launches == n + 1
+    assert got.dtype == dt and got.shape == (H, W)
+    _assert_close(got, ref.stencil2d_ref(img, kern),
+                  dict(atol=1e-5, rtol=0) if dtype == "float32" else BF16)
+
+
+@pytest.mark.cuda
+def test_stencil_kernel_refuses_what_it_does_not_take(cuda):
+    img = _rand((16, 16), 22, torch.float32, cuda)
+    kern = _rand((3, 3), 23, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        ops.stencil2d(img.half(), kern)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.stencil2d(_rand((16, 32), 24, torch.float32, cuda).T, kern)
+    with pytest.raises(ValueError, match="K in"):
+        ops.stencil2d(img, _rand((7, 7), 25, torch.float32, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+@pytest.mark.parametrize("L,size,dist,offset", [
+    (2048, 2, 1, 0), (2048, 8, 4, 0), (2048, 64, 16, 0),
+    (2048, 2048, 256, 0), (131072, 1024, 512, 0),
+    (32768, 131072, 1024, 65536), (32768, 65536, 4, 32768),
+    (4096, 8, 8, 0)])                     # size == dist: the ref's quirk
+def test_bitonic_kernel_matches_plain(cuda, dtype, L, size, dist, offset):
+    if dtype == "int32":
+        x = torch.randint(-1000, 1000, (L,), device=cuda, dtype=torch.int32,
+                          generator=torch.Generator(cuda).manual_seed(L))
+    else:
+        x = _rand((L,), 26, torch.float32, cuda)
+    n = ops.bitonic_stage.launches
+    got = ops.bitonic_stage(x, dist, size, offset=offset)
+    torch.cuda.synchronize()
+    assert ops.bitonic_stage.launches == n + 1
+    torch.testing.assert_close(
+        got, ref.bitonic_stage_ref(x, dist, size, offset), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_bitonic_kernel_refuses_what_it_does_not_take(cuda):
+    x = _rand((4096,), 27, torch.float32, cuda)
+    for bad in (x.bfloat16(), x.half(), x.double()):
+        with pytest.raises(TypeError):
+            ops.bitonic_stage(bad, 4, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.bitonic_stage(_rand((8192,), 28, torch.float32, cuda)[::2], 4, 8)
+    with pytest.raises(ValueError, match="dist"):
+        ops.bitonic_stage(x, 2048, 4096)                 # dist >= block
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,size,kernel,launches", [
+    ("sc", 512, "stencil2d", 4), ("bs", 16384, "bitonic_stage", 4 * 99)])
+def test_dmode_on_a_four_shard_card_mesh(cuda, name, size, kernel, launches):
+    """SC and BS D-mode on [cuda] * 4 against the numpy oracle, their
+    kernels launched once per shard (SC) and once per shard and in-block
+    stage (BS: 99 stages with dist < 2048 in a sort of 16384)."""
+    from repro_torch.launch import mgmark
+    from repro_torch.patterns import WORKLOADS, Mesh, evaluate
+    mod = WORKLOADS[name]
+    mesh = Mesh([cuda] * 4)
+    args, oracle = mgmark.workload_inputs(name, size)
+    rep = evaluate(name, mod.PATTERN, "dmode", mod.make_dmode(mesh), args,
+                   oracle, mesh)
+    assert rep.correct and rep.max_err <= 1e-5
+    assert rep.launches[kernel] == launches
+    assert rep.device.startswith("cuda")
