@@ -6,10 +6,14 @@
 Phases, each of which raises (and so exits non-zero) on failure:
 
 1. build  — compile every CUDA kernel of the port from this checkout's
-   sources (one nvcc per source, in parallel) and print ptxas's report;
+   sources (one nvcc per source, in parallel), print ptxas's report and
+   count the tensor-core instructions (HGMMA, HMMA) in each library's
+   SASS with cuobjdump; flash_attention must hold HGMMA and ssd HMMA;
 2. kernels — hold each kernel against its plain PyTorch version, bf16 and
    f32, at the serving and MGMark paths' shapes, and time the kernel, the
-   plain version and one library call computing the same function;
+   plain version and one library call computing the same function (for
+   attention, ``scaled_dot_product_attention`` pinned to each backend the
+   build offers, the fastest recorded);
 3. serve  — qwen2-1.5b at full width (bf16, 28 layers, random weights
    from a seed): kernel-path vs plain-path prefill logits on a 995-token
    probe, then 16 requests through ``repro_torch.serve.Engine`` with the
@@ -36,6 +40,7 @@ from __future__ import annotations
 import gc
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -45,7 +50,13 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM datasheet peak
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+# dense peaks: bf16 and TF32 tensor cores, f32 CUDA cores; 3xTF32 does
+# three TF32 products for each f32 one
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12,
+                  "tf32x3": 495e12 / 3}
+# the tensor-core instructions each redesigned kernel's SASS must hold
+TENSOR_CORE_SASS = {"flash_attention": "HGMMA", "ssd": "HMMA"}
+SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
 TOL = {"float32": (2e-5, 1e-4), "bfloat16": (3e-2, 3e-2)}   # atol, rtol
 FLASH_SEQS = (1, 77, 128, 995, 2047)
 RMS_ROWS = (1, 4, 995, 2047)
@@ -129,6 +140,20 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def ssd_f64(x, dt, cs, Bm, Cm):
+    """The SSD chunk function (``ref.ssd_chunk_ref``) computed in f64."""
+    import torch
+    x, dt, cs, Bm, Cm = (t.double() for t in (x, dt, cs, Bm, Cm))
+    Q = x.shape[2]
+    mask = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    decay = torch.where(mask, torch.exp(cs[..., :, None] - cs[..., None, :]),
+                        0.0)
+    att = torch.einsum("rhin,rhjn->rhij", Cm, Bm) * decay * dt[..., None, :]
+    w = torch.exp(cs[..., -1:] - cs) * dt
+    return (torch.einsum("rhij,rhjp->rhip", att, x),
+            torch.einsum("rhqn,rhq,rhqp->rhnp", Bm, w, x))
+
+
 def bound(nbytes: float, ops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[dtype]
@@ -138,6 +163,9 @@ def bound(nbytes: float, ops: float, dtype: str):
 
 # ---------------------------------------------------------------------------
 def phase_build():
+    """Returns {library: {"HGMMA": n, "HMMA": n}} from its SASS, or {}
+    where the toolkit has no cuobjdump."""
+    import shutil
     from repro_torch.kernels import build
     print("== phase 1: build", flush=True)
     t0 = time.perf_counter()
@@ -149,6 +177,22 @@ def phase_build():
         for line in rec["log"].splitlines():
             if "ptxas" in line or "spill" in line:
                 print("  " + line.strip())
+    tool = shutil.which("cuobjdump") or str(
+        pathlib.Path(build.nvcc()).with_name("cuobjdump"))
+    if not pathlib.Path(tool).exists():
+        print("  cuobjdump not found: tensor-core SASS not counted")
+        return {}
+    sass = {}
+    for name, rec in sorted(info.items()):
+        text = subprocess.run([tool, "-sass", str(rec["path"])],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        sass[name] = {op: len(re.findall(rf"\s{op}[.\s]", text))
+                      for op in ("HGMMA", "HMMA")}
+    print(f"  tensor-core instructions in the SASS: {sass}")
+    for name, op in TENSOR_CORE_SASS.items():
+        check(sass[name][op] > 0, f"{name}: no {op} in its SASS")
+    return sass
 
 
 def phase_kernels():
@@ -164,11 +208,23 @@ def phase_kernels():
              "stencil2d": [], "bitonic_stage": []}
 
     def record(name, shape, dtype, got, want, fn, plain_fn, lib_fn, b,
-               tol=None):
+               tol=None, **extra):
         """got/want: a tensor or a tuple of tensors; lib_fn None where no
-        one PyTorch call computes the function."""
+        one PyTorch call computes the function, or {label: fn} of which
+        the fastest that runs is recorded."""
         ms, plain_ms = time_ms(fn), time_ms(plain_fn)
-        lib_ms = None if lib_fn is None else time_ms(lib_fn)
+        if isinstance(lib_fn, dict):
+            extra["library_ms_by_backend"] = by = {}
+            for label, f in lib_fn.items():
+                try:
+                    by[label] = time_ms(f)
+                except RuntimeError:        # the build offers no such kernel
+                    by[label] = None
+            ran = {k: v for k, v in by.items() if v is not None}
+            extra["library"] = min(ran, key=ran.get) if ran else None
+            lib_ms = ran[extra["library"]] if ran else None
+        else:
+            lib_ms = None if lib_fn is None else time_ms(lib_fn)
         atol, rtol = tol or TOL[dtype]
         pairs = list(zip(got, want)) if isinstance(got, tuple) \
             else [(got, want)]
@@ -178,9 +234,14 @@ def phase_kernels():
         row = {"shape": shape, "dtype": dtype,
                "max_abs_err": max(e.max().item() for e in errs),
                "atol": atol, "rtol": rtol, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": lib_ms, "bound_ms": b[0], "bound_by": b[1]}
+               "library_ms": lib_ms, "bound_ms": b[0], "bound_by": b[1],
+               **extra}
         cases[name].append(row)
         lib = "none" if lib_ms is None else f"{lib_ms:.4f}"
+        if "library" in extra:
+            lib += f" ({extra['library']}; {extra['library_ms_by_backend']})"
+        if "max_abs_err_vs_f64" in extra:
+            lib += f"  vs f64 {extra['max_abs_err_vs_f64']}"
         print(f"  {name:16s} {shape:15s} {dtype:8s} err "
               f"{row['max_abs_err']:.3e} (atol {atol}, rtol {rtol}) "
               f"{'ok' if ok else 'FAIL'}  kernel {ms:.4f} ms  plain "
@@ -188,6 +249,15 @@ def phase_kernels():
               flush=True)
         check(ok, f"{name} {shape} {dtype}: kernel disagrees with its plain "
                   f"version (max abs err {row['max_abs_err']:.3e})")
+
+    def sdpa(qt, kt, vt, backend):
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        def call():
+            with sdpa_kernel(getattr(SDPBackend, backend)):
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+        return call
 
     H, K, hd = 12, 2, 128                       # qwen2-1.5b's heads
     for S in FLASH_SEQS:
@@ -205,8 +275,7 @@ def phase_kernels():
             record("flash_attention", f"S={S}", dtype, got, want,
                    lambda: fa.flash_attention(q, k, v, causal=True),
                    lambda: ref.flash_attention_ref(q, k, v, True),
-                   lambda: F.scaled_dot_product_attention(
-                       qt, kt, vt, is_causal=True, enable_gqa=True),
+                   {name: sdpa(qt, kt, vt, name) for name in SDPA_BACKENDS},
                    bound(nbytes, ops, dtype))
 
     # qwen2-1.5b's d_model; mamba2-1.3b's gated norm over d_inner
@@ -246,6 +315,12 @@ def phase_kernels():
         args = (x, dt, cs, Bm, Cm)
         got = ssd.ssd_chunk(*args)
         want = ref.ssd_chunk_ref(*args)
+        # both against the same function in f64: the plain version's own
+        # f32 error is the yardstick of the kernel's
+        truth = ssd_f64(*args)
+        f64 = {label: max((a.double() - t).abs().max().item()
+                          for a, t in zip(pair, truth))
+               for label, pair in (("kernel", got), ("plain", want))}
         torch.cuda.synchronize()
         # bytes: x, dt, cs once, B and C once per chunk, y and the states;
         # operations: the causal half of C.B^T and of att @ x, and B^T x
@@ -253,10 +328,14 @@ def phase_kernels():
                       + R * H * N * P)
         pairs = Q * (Q + 1) / 2
         ops = R * H * (2 * pairs * N + 2 * pairs * P + 2 * Q * N * P)
+        # the kernel's products are 3xTF32 on the tensor cores; the f32
+        # CUDA-core bound of the earlier kernel stays beside it
         record("ssd_chunk_kernel", label, "float32", got, want,
                lambda: ssd.ssd_chunk(*args),
                lambda: ref.ssd_chunk_ref(*args), None,
-               bound(nbytes, ops, "float32"), tol=SSD_TOL)
+               bound(nbytes, ops, "tf32x3"), tol=SSD_TOL,
+               bound_ms_f32=bound(nbytes, ops, "float32")[0],
+               max_abs_err_vs_f64=f64)
 
     # stencil2d: bytes img once in, once out (and the K*K weights); 2 K^2
     # operations per output, f32 math whatever img's dtype.  Library:
@@ -578,7 +657,7 @@ def main() -> int:
     print(f"device: {name} x{torch.cuda.device_count()}, torch "
           f"{torch.__version__}, cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    phase_build()
+    sass = phase_build()
     cases = phase_kernels()
     serve = {}
     for arch, phase in (("qwen2-1.5b", 3), ("mamba2-1.3b", 5)):
@@ -618,7 +697,10 @@ def main() -> int:
             **{k: main_row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by",
                                         "library_ms", "shape", "dtype")},
+            **{k: main_row[k] for k in ("library", "bound_ms_f32")
+               if k in main_row},
             "max_abs_err_all_cases": max(r["max_abs_err"] for r in rows),
+            "sass": sass.get(source[kname][0].split("/")[-1][:-3]),
             "cases": rows})
     out = ROOT / "build"                        # git-ignored
     out.mkdir(exist_ok=True)

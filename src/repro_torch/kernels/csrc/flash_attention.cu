@@ -8,21 +8,52 @@
 //
 // What bounds it on this card: at prefill lengths the work is
 // 4 * S^2/2 * hd * H operations against O(S * hd * H) bytes, so it is
-// operations-bound beyond a few hundred tokens (and bytes-bound for
-// short prompts).  This first kernel does its products on the f32 cores
-// (no tensor cores), so it sits far from the bf16 tensor-core bound;
-// wgmma and TMA are for a later change.
+// operations-bound beyond a few hundred tokens (bytes-bound, and in
+// practice launch-bound, for short prompts).  For bf16 the ceiling is
+// the tensor cores' 989 TFLOP/s; the softmax between the two products
+// runs on the CUDA cores and the multi-function unit (exp2), and at
+// hd = 128 it is a sizeable share of a tile's time.
 //
-// What the design does about it:
+// bf16: tensor-core kernel (flash_fwd_tc below).
+//  * One block of one warpgroup (128 threads) per (64-row q tile, q-head,
+//    batch row); q tiles are numbered heaviest first (the last causal
+//    tiles, which see the most keys, start first).  At qwen2-1.5b's
+//    S = 995, H = 12 that is 192 blocks of 82 KB of shared memory, two
+//    per SM, so every block is resident at once on the 132 SMs.
+//  * S = Q K^T is wgmma m64n64k16 with Q (loaded once) and the 64-key K
+//    tile both in shared memory, K-major, in the 128-byte swizzle (64- or
+//    32-byte for hd = 32, 16, whose rows are shorter).  O += P V is
+//    wgmma m64n{hd}k16 with P taken from registers: the probabilities,
+//    rounded to bf16 in the accumulator's own fragment layout, are the A
+//    operand as they are, and V is read from shared memory through
+//    wgmma's transpose bit (MN-major), so V needs no transposed copy.
+//    Both products accumulate in f32.
+//  * The running (m, l) per row stay in f32 registers (a row lives in a
+//    quad of lanes: two shuffles per reduction); the rescale of O is
+//    applied to the register accumulator.
+//  * Copies: TMA, through one 4-d tensor map each for q, k and v over
+//    (hd, head, seq, batch) with the strides the caller's tensors have
+//    (views of one fused projection included).  Two K/V stages ring in
+//    shared memory behind mbarriers: while tile t multiplies, tile t+1
+//    is in flight, and the load of t+2 is issued as soon as t is done.
+//    TMA's out-of-bounds zero fill covers ragged S; masking past Sq and
+//    Skv and the causal mask stay in the kernel.
+//  * The tensor-map encoder is fetched through cudaGetDriverEntryPoint,
+//    so the library needs no link against the driver library.
+//
+// f32: the CUDA-core kernel (flash_fwd_kernel below) is kept as it was
+// and deliberately not redesigned: its atol 2e-5 gate against the plain
+// version (and the identical f32 greedy tokens of the served models)
+// rules out TF32 products.
 //  * One block per (q tile of 32 rows, q-head, batch row); 4 warps, each
 //    owning 8 query rows.  The kv loop runs inside the block, where the
 //    TPU kernel used a sequential grid axis, and stops at the causal
 //    diagonal of the block's last row; a warp skips the tiles that lie
 //    wholly above its own rows.
-//  * Each 32-key tile of K and V is staged once in shared memory (as f32)
-//    and reused by all 32 query rows of the block.  K is stored
-//    transposed with one column of padding, so that both the coalesced
-//    store and the per-lane read are free of bank conflicts.
+//  * Each 32-key tile of K and V is staged once in shared memory and
+//    reused by all 32 query rows of the block.  K is stored transposed
+//    with one column of padding, so that both the coalesced store and
+//    the per-lane read are free of bank conflicts.
 //  * Scores: lane j owns key j of the tile and computes its dot product
 //    with each of the warp's 8 rows; the q rows are read as float4
 //    broadcasts.  The row max needs one warp reduction per tile; the row
@@ -30,14 +61,17 @@
 //  * P @ V: each lane owns hd/32 output columns; probabilities go
 //    through a per-warp shared-memory row and are read back as float4
 //    broadcasts.
-//  * Ragged lengths: rows past Sq and keys past Skv are masked inside the
-//    kernel, so any S is taken (the TPU wrapper asserts S % 128 == 0).
-//  * The causal mask is top-left aligned (kj <= qi); the wrapper only
-//    takes causal calls with Sq == Skv, where that equals the
-//    bottom-right alignment of the plain version.
-//  * f32 inputs are computed in full f32 (no TF32), bf16 inputs are
-//    widened to f32 on load; the output is written in the input dtype.
+//
+// Both: ragged lengths (rows past Sq, keys past Skv) are masked inside
+// the kernel, so any S is taken (the TPU wrapper asserts S % 128 == 0).
+// The causal mask is top-left aligned (kj <= qi); the wrapper only takes
+// causal calls with Sq == Skv, where that equals the bottom-right
+// alignment of the plain version.  The output is written in the input
+// dtype.
+#include <cuda.h>  // CUtensorMap and its enums (types only: no driver link)
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro_torch {
 namespace {
@@ -209,27 +243,365 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T>
+
+cudaError_t dispatch_hd_f32(int hd, const void* q, const void* k,
+                            const void* v, void* o, int B, int H, int K,
+                            int Sq, int Skv, const long long* st, float scale,
+                            int causal, cudaStream_t s) {
+  switch (hd) {
+    case 16: return launch<float, 16>(q, k, v, o, B, H, K, Sq, Skv, st, scale, causal, s);
+    case 32: return launch<float, 32>(q, k, v, o, B, H, K, Sq, Skv, st, scale, causal, s);
+    case 64: return launch<float, 64>(q, k, v, o, B, H, K, Sq, Skv, st, scale, causal, s);
+    case 128: return launch<float, 128>(q, k, v, o, B, H, K, Sq, Skv, st, scale, causal, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 tensor-core kernel
+// ---------------------------------------------------------------------------
+namespace tc {
+
+using namespace hopper;
+
+constexpr int kBM = 64;       // query rows per block: one wgmma M
+constexpr int kBN = 64;       // keys per K/V tile
+constexpr int kStages = 2;    // K/V tiles in flight
+constexpr int kThreads = 128; // one warpgroup
+
+template <int HD>
+struct Cfg {
+  // Swizzle span in bytes: a row of a box is hd * 2 bytes, at most 128.
+  static constexpr int kSw = HD * 2 >= 128 ? 128 : HD * 2;
+  static constexpr int kCb = kSw / 2;            // columns of one TMA box
+  static constexpr int kBoxes = HD / kCb;        // boxes per 64-row tile
+  static constexpr int kBoxBytes = kBM * kSw;
+  static constexpr int kTileBytes = kBM * HD * 2;
+  static constexpr uint64_t kLayout = kSw == 128 ? 1 : kSw == 64 ? 2 : 3;
+  // Q, kStages x (K, V), three mbarriers, and slack to align to 1024 B
+  static constexpr int kSmem = kTileBytes * (1 + 2 * kStages) + 64 + 1024;
+};
+
+// A K-major operand (Q or K: 64 rows of hd, hd contiguous) for the k-step
+// kk of 16 columns: the box holding those columns, 32 bytes in per step
+// inside a swizzled row.  8-row groups are 8 * kSw bytes apart.
+template <int HD>
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
+  using C = Cfg<HD>;
+  const int col = kk * 16;
+  const uint32_t addr =
+      tile + (col / C::kCb) * C::kBoxBytes + (col % C::kCb) * 2;
+  return make_desc(addr, 16, 8 * C::kSw, C::kLayout);
+}
+
+// V as the MN-major B operand of O += P V for the k-step kk of 16 keys:
+// 16 rows of kSw bytes further per step; 8-key groups 8 * kSw bytes apart
+// (stride offset); boxes of kCb columns kBoxBytes apart (leading offset).
+template <int HD>
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
+  using C = Cfg<HD>;
+  return make_desc(tile + kk * 16 * C::kSw, C::kBoxBytes, 8 * C::kSw,
+                   C::kLayout);
+}
+
+template <int HD>
+__device__ __forceinline__ void wgmma_pv(float (&d)[HD / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_pv<16>(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  wgmma_rs_m64n16(d, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<32>(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  wgmma_rs_m64n32(d, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  wgmma_rs_m64n64(d, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_m64n128(d, a, db);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Issue the K and V boxes of kv tile t into stage s (one thread).
+template <int HD>
+__device__ __forceinline__ void load_kv(const CUtensorMap* tk,
+                                        const CUtensorMap* tv, uint32_t sk,
+                                        uint32_t sv, uint32_t bar, int t,
+                                        int kvh, int b) {
+  using C = Cfg<HD>;
+  mbar_expect_tx(bar, 2 * C::kTileBytes);
+#pragma unroll
+  for (int c = 0; c < C::kBoxes; ++c) {
+    tma_load_4d(sk + c * C::kBoxBytes, tk, bar, c * C::kCb, kvh, t * kBN, b);
+    tma_load_4d(sv + c * C::kBoxBytes, tv, bar, c * C::kCb, kvh, t * kBN, b);
+  }
+}
+
+// grid (H, B, q tiles); block kThreads.  The accumulator of a wgmma with
+// N columns gives thread (warp w, lane l) rows 16w + l/4 (registers
+// 4j, 4j+1) and 16w + l/4 + 8 (4j+2, 4j+3), columns 8j + 2(l%4) + {0, 1}.
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 __nv_bfloat16* __restrict__ o, int Sq, int Skv, int G,
+                 long long o_sb, long long o_ss, long long o_sh,
+                 float scale_log2, int causal) {
+  using C = Cfg<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  // swizzled tiles want 1024-byte alignment (the swizzle repeats there)
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base;
+  const uint32_t bar_q = base + (1 + 2 * kStages) * C::kTileBytes;
+  const uint32_t bar_kv = bar_q + 8;        // kStages barriers, 8 B each
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBM;   // heaviest first
+  const int kvh = h / G;
+  const int q_last = min(q0 + kBM, Sq) - 1;
+  const int kv_end = causal ? min(Skv, q_last + 1) : Skv;
+  const int ntiles = (kv_end + kBN - 1) / kBN;
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) mbar_init(bar_kv + 8 * s, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, C::kTileBytes);
+#pragma unroll
+    for (int c = 0; c < C::kBoxes; ++c)
+      tma_load_4d(sq + c * C::kBoxBytes, &tq, bar_q, c * C::kCb, h, q0, b);
+    for (int t = 0; t < kStages && t < ntiles; ++t)
+      load_kv<HD>(&tk, &tv, base + (1 + 2 * t) * C::kTileBytes,
+                  base + (2 + 2 * t) * C::kTileBytes, bar_kv + 8 * t, t, kvh,
+                  b);
+  }
+
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const int row0 = q0 + warp * 16 + (lane >> 2);   // rows row0, row0 + 8
+  const int col0 = 2 * (lane & 3);
+
+  mbar_wait(bar_q, 0);
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % kStages;
+    const uint32_t sk = base + (1 + 2 * s) * C::kTileBytes;
+    const uint32_t sv = sk + C::kTileBytes;
+    mbar_wait(bar_kv + 8 * s, (t / kStages) & 1);
+
+    // ---- S = Q K^T (64 x 64, f32) ----
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_m64n64(sc, desc_kmajor<HD>(sq, kk), desc_kmajor<HD>(sk, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // ---- mask, online softmax ----
+    const int k0 = t * kBN;
+    if (k0 + kBN > Skv || (causal && k0 + kBN - 1 > q0)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int kj = k0 + 8 * (i >> 2) + col0 + (i & 1);
+        const int qi = row0 + 8 * ((i >> 1) & 1);
+        if (kj >= Skv || (causal && kj > qi)) sc[i] = -INFINITY;
+      }
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    float alpha[2], mb[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // a row with no valid key yet keeps m = -inf: exp2(-inf) = 0
+      const float m_use = mx[r] == -INFINITY ? 0.f : mx[r];
+      alpha[r] = exp2f((m[r] - m_use) * scale_log2);
+      mb[r] = m_use * scale_log2;
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      sc[i] = exp2f(fmaf(sc[i], scale_log2, -mb[r]));
+      l[r] += sc[i];
+    }
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+    // ---- O += P V: P in bf16 as the A operand, from registers ----
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_pv<HD>(acc, pa[kk], desc_mnmajor<HD>(sv, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+
+    // every warp is done with stage s: refill it with tile t + kStages
+    __syncthreads();
+    if (tid == 0 && t + kStages < ntiles)
+      load_kv<HD>(&tk, &tv, sk, sv, bar_kv + 8 * s, t + kStages, kvh, b);
+  }
+
+  // ---- O / l, in bf16 ----
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+  __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    if (qi >= Sq) continue;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(ob + qi * o_ss + 8 * j + col0) =
+          pack_bf16(acc[4 * j + 2 * r] * inv[r],
+                    acc[4 * j + 2 * r + 1] * inv[r]);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Tensor map over a (batch, seq, head, hd) bf16 tensor with element
+// strides (sb, ss, sh), hd contiguous, as dims (hd, head, seq, batch)
+// and 64-row boxes of Cfg<HD>::kCb columns.  A dimension of size 1 gets
+// the stride it would have if packed (its stride is never used).
+template <int HD>
+bool encode(CUtensorMap* map, const void* ptr, int heads, int seq, int batch,
+            long long sb, long long ss, long long sh) {
+  using C = Cfg<HD>;
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  if (heads == 1) sh = HD;
+  if (seq == 1) ss = heads * sh;
+  if (batch == 1) sb = seq * ss;
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)heads,
+                              (cuuint64_t)seq, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)C::kCb, 1, (cuuint32_t)kBM, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz =
+      C::kSw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : C::kSw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                     : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int B, int H, int K, int Sq, int Skv, const long long* st,
+                   float scale, int causal, cudaStream_t stream) {
+  using C = Cfg<HD>;
+  CUtensorMap tq, tk, tv;
+  if (!encode<HD>(&tq, q, H, Sq, B, st[0], st[1], st[2]) ||
+      !encode<HD>(&tk, k, K, Skv, B, st[3], st[4], st[5]) ||
+      !encode<HD>(&tv, v, K, Skv, B, st[6], st[7], st[8]))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_fwd_tc<HD>;
+  const cudaError_t opt_in = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (opt_in != cudaSuccess) return opt_in;
+  const dim3 grid(H, B, (Sq + kBM - 1) / kBM);
+  kernel<<<grid, kThreads, C::kSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Skv, H / K, st[9],
+      st[10], st[11], scale * 1.4426950408889634f, causal);
+  return cudaGetLastError();
+}
+
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
                         void* o, int B, int H, int K, int Sq, int Skv,
                         const long long* st, float scale, int causal,
                         cudaStream_t s) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, B, H, K, Sq, Skv, st, scale, causal, s);
-    case 32: return launch<T, 32>(q, k, v, o, B, H, K, Sq, Skv, st, scale, causal, s);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, K, Sq, Skv, st, scale, causal, s);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, K, Sq, Skv, st, scale, causal, s);
+    case 16: return launch<16>(q, k, v, o, B, H, K, Sq, Skv, st, scale, causal, s);
+    case 32: return launch<32>(q, k, v, o, B, H, K, Sq, Skv, st, scale, causal, s);
+    case 64: return launch<64>(q, k, v, o, B, H, K, Sq, Skv, st, scale, causal, s);
+    case 128: return launch<128>(q, k, v, o, B, H, K, Sq, Skv, st, scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
+
+}  // namespace tc
 
 }  // namespace
 }  // namespace repro_torch
 
 // q, o: (B, Sq, H, hd); k, v: (B, Skv, K, hd), all of one dtype, last
 // dimension contiguous.  strides[12] holds the (batch, seq, head) element
-// strides of q, k, v and o in that order.  Returns the cudaError_t of the
-// launch.
+// strides of q, k, v and o in that order.  bf16 also needs 16-byte
+// aligned q, k, v and their strides in multiples of 8 elements (TMA).
+// Returns the cudaError_t of the launch.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
                                    const void* v, void* o, int B, int H,
                                    int K, int Sq, int Skv, int hd,
@@ -242,11 +614,11 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat32:
-      return dispatch_hd<float>(hd, q, k, v, o, B, H, K, Sq, Skv, strides,
-                                scale, causal, s);
+      return dispatch_hd_f32(hd, q, k, v, o, B, H, K, Sq, Skv, strides, scale,
+                             causal, s);
     case kBFloat16:
-      return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, H, K, Sq, Skv,
-                                        strides, scale, causal, s);
+      return tc::dispatch_hd(hd, q, k, v, o, B, H, K, Sq, Skv, strides, scale,
+                             causal, s);
     default: return cudaErrorInvalidValue;
   }
 }

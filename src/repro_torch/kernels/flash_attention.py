@@ -2,12 +2,14 @@
 ``csrc/flash_attention.cu``.
 
 Port of the Pallas TPU kernel
-``repro/kernels/flash_attention.py::flash_attention``.  One block per
-(32-row q tile, q-head, batch row) loops over 32-key kv tiles in shared
-memory up to the causal diagonal, keeping (m, l, acc) in f32 registers
-(the design note is at the top of the source).  This module checks what
-the kernel takes and raises on anything else; the public wrapper with
-the launch counter is ``ops.flash_attention``.
+``repro/kernels/flash_attention.py::flash_attention``.  bf16 runs on the
+tensor cores: one warpgroup per (64-row q tile, q-head, batch row),
+Q K^T and P V as wgmma with f32 accumulation, K/V tiles brought in by TMA
+through tensor maps over the tensors' own strides.  f32 keeps the
+CUDA-core kernel (its 2e-5 gate rules out TF32).  The design note is at
+the top of the source.  This module checks what the kernel takes and
+raises on anything else; it never copies an input.  The public wrapper
+with the launch counter is ``ops.flash_attention``.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 from . import build
 
 HEAD_DIMS = (16, 32, 64, 128)        # template instantiations in the source
+TMA_ALIGN = 16                       # bytes: TMA's base and stride granule
 
 _SIGNATURES = {
     "flash_attention_fwd": (
@@ -60,6 +63,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention kernel takes q, k, v with a "
                          "contiguous last dimension")
+    if q.dtype == torch.bfloat16:
+        if (Sq + 63) // 64 > 65535:                 # q tiles on grid.z
+            raise ValueError(f"bf16 flash_attention kernel takes Sq <= "
+                             f"{65535 * 64}, got {Sq}")
+        check_tma_operands(q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(*[
         s for t in (q, k, v, out) for s in t.stride()[:3]])
@@ -71,3 +79,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "flash_attention launch")
     return out
+
+
+def check_tma_operands(*tensors: torch.Tensor) -> None:
+    """The bf16 kernel reads q, k, v through TMA tensor maps: each base
+    pointer 16-byte aligned, and each (batch, seq, head) stride of a
+    dimension longer than 1 positive and a multiple of 16 bytes (8 bf16
+    elements).  Raises ValueError otherwise."""
+    for name, t in zip("qkv", tensors):
+        if t.data_ptr() % TMA_ALIGN:
+            raise ValueError(f"bf16 flash_attention kernel takes {name} "
+                             f"16-byte aligned (TMA), got address "
+                             f"{t.data_ptr():#x}")
+        for size, stride in zip(t.shape[:3], t.stride()[:3]):
+            if size > 1 and (stride <= 0
+                             or stride * t.element_size() % TMA_ALIGN):
+                raise ValueError(
+                    f"bf16 flash_attention kernel takes {name} strides over "
+                    f"(batch, seq, head) in positive multiples of 16 bytes "
+                    f"(TMA), got {t.stride()}")

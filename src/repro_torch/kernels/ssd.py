@@ -2,11 +2,14 @@
 ``csrc/ssd.cu``.
 
 Port of the Pallas TPU kernel ``repro/kernels/ssd.py::ssd_chunk_kernel``.
-One block per (64-row i-tile, head, chunk) streams 64-row j-tiles of B
-and x through shared memory up to the diagonal; the chunk states are
-blocks of their own in the same grid (the design note is at the top of
-the source).  A short chunk (any Q >= 1) is masked in the kernel, not
-padded here.  This module checks what the kernel takes and raises on
+One block per (64-row i-tile, head, chunk) walks 64-row j-tiles of B
+and x up to the diagonal, staged by cp.async; the chunk states are
+blocks of their own in the same grid.  All three products (C B^T,
+att @ x, (B w)^T @ x) run on the tensor cores as 3xTF32 ``mma.sync``
+(each f32 operand split into two TF32 parts, three products summed in
+f32), which keeps the f32 kernel's accuracy; the design note is at the
+top of the source.  A short chunk (any Q >= 1) is masked in the kernel,
+not padded here.  This module checks what the kernel takes and raises on
 anything else; the public wrapper with the launch counter is
 ``ops.ssd_chunk_kernel``.
 """

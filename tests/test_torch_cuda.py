@@ -6,9 +6,10 @@ torch sees no GPU.  On a machine with one (and without JAX):
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerances: f32 atol 2e-5 / rtol 1e-4 for attention and 1e-5 for
-rmsnorm (sums in another order, no TF32); bf16 3e-2 (one bf16 rounding
-of the output at another place); SSD and the f32 mamba prefill 1e-4
-(tests/test_kernels.py's for the SSD kernel)."""
+rmsnorm (sums in another order, no TF32); bf16 3e-2 (the bf16 kernel
+rounds the probabilities to bf16 before P V, and the output once); SSD
+and the f32 mamba prefill 1e-4 (tests/test_kernels.py's for the SSD
+kernel, whose 3xTF32 products keep f32's accuracy)."""
 import numpy as np
 import pytest
 
@@ -70,6 +71,57 @@ def test_flash_kernel_takes_strided_heads(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal", [
+    (1, 63, 63, 12, 2, 128, True), (1, 64, 64, 12, 2, 128, True),
+    (1, 65, 65, 12, 2, 128, True), (1, 129, 129, 12, 2, 128, True),
+    (1, 995, 995, 12, 2, 128, True),             # the qwen2-1.5b probe
+    (2, 100, 100, 4, 2, 16, True), (2, 100, 100, 4, 2, 32, True),
+    (2, 100, 100, 4, 2, 64, True), (2, 100, 100, 4, 2, 128, True),
+    (2, 50, 130, 4, 2, 128, False), (1, 130, 50, 6, 3, 32, False)])
+def test_flash_bf16_tensor_core_kernel_matches_plain(cuda, B, Sq, Skv, H, K,
+                                                     hd, causal):
+    """The wgmma kernel at its 64-row/64-key tile edges, every head
+    width, and non-causal Sq != Skv."""
+    q = _rand((B, Sq, H, hd), 30, torch.bfloat16, cuda)
+    k = _rand((B, Skv, K, hd), 31, torch.bfloat16, cuda)
+    v = _rand((B, Skv, K, hd), 32, torch.bfloat16, cuda)
+    n = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == n + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    _assert_close(got, ref.flash_attention_ref(q, k, v, causal=causal), BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 128])
+def test_flash_bf16_kernel_takes_strided_heads(cuda, hd):
+    """bf16 q/k/v as views of one fused projection: the TMA tensor maps
+    take its seq stride (H + 2K) * hd as it is."""
+    B, S, H, K = 2, 70, 4, 2
+    fused = _rand((B, S, (H + 2 * K) * hd), 33, torch.bfloat16, cuda)
+    q, k, v = fused.split([H * hd, K * hd, K * hd], dim=-1)
+    q, k, v = (q.view(B, S, H, hd), k.view(B, S, K, hd), v.view(B, S, K, hd))
+    _assert_close(ops.flash_attention(q, k, v),
+                  ref.flash_attention_ref(q, k, v), BF16)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_kernel_refuses_misaligned_views(cuda):
+    """TMA needs 16-byte aligned bases and strides: a view 8 bytes in, or
+    a seq stride of 516 elements, is refused, never copied."""
+    B, S, H, K, hd = 1, 16, 4, 2, 64
+    fused = _rand((B, S, (H + 2 * K) * hd + 4), 34, torch.bfloat16, cuda)
+    k = fused[..., H * hd:(H + K) * hd].view(B, S, K, hd)
+    n = ops.flash_attention.launches
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(fused[..., 4:4 + H * hd].view(B, S, H, hd), k, k)
+    with pytest.raises(ValueError, match="strides"):
+        ops.flash_attention(fused[..., :H * hd].view(B, S, H, hd), k, k)
+    assert ops.flash_attention.launches == n
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("rows,d", [(1, 1536), (4, 1536), (995, 1536),
                                     (3, 100)])
@@ -99,7 +151,9 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     (2, 4, 128, 64, 32, True),      # small, B/C shared by the heads
     (1, 3, 77, 16, 8, False),       # ragged Q, one chunk, N below a tile
     (3, 2, 200, 32, 130, True),     # ragged Q over 4 i-tiles, N over 3 tiles
-    (1, 64, 1, 64, 128, True)])     # one token at mamba2-1.3b's heads
+    (1, 64, 1, 64, 128, True),      # one token at mamba2-1.3b's heads
+    (4, 64, 256, 64, 128, True),    # the serving path's main shape
+    (1, 64, 255, 64, 128, True)])   # one row short of four full i-tiles
 def test_ssd_kernel_matches_plain(cuda, R, H, Q, P, N, shared):
     x = _rand((R, H, Q, P), 10, torch.float32, cuda)
     dt = torch.nn.functional.softplus(_rand((R, H, Q), 11, torch.float32,
