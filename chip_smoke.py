@@ -13,11 +13,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
    f32, at the serving and MGMark paths' shapes, and time the kernel, the
    plain version and one library call computing the same function (for
    attention, ``scaled_dot_product_attention`` pinned to each backend the
-   build offers, the fastest recorded);
+   build offers, the fastest recorded; for the fused norms, the add or
+   the gate and ``F.rms_norm`` as separate calls); the fused norms' h
+   must equal the eager add bit for bit, and BS's whole sort on the
+   kernels must equal ``torch.sort`` (timed beside it);
 3. serve  — qwen2-1.5b at full width (bf16, 28 layers, random weights
-   from a seed): kernel-path vs plain-path prefill logits on a 995-token
-   probe, then 16 requests through ``repro_torch.serve.Engine`` with the
-   kernels' launch counters read around that run;
+   from a seed): ``api.loss(...).backward()`` on the kernel path must
+   raise (the kernels have no backward), kernel-path vs plain-path
+   prefill logits on a 995-token probe, then 16 requests through
+   ``repro_torch.serve.Engine`` with the kernels' launch counters read
+   around that run;
 4. f32    — the full-width model in f32: greedy tokens of the kernel path
    and the plain path must be identical;
 5. serve  — phase 3 for mamba2-1.3b at full width (bf16, 48 layers): the
@@ -26,8 +31,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
 7. mgmark — the seven MGMark workloads in U-mode and D-mode on a 4-shard
    mesh on the card at ``default_size(4)`` (``repro_torch.launch.mgmark``):
    each correct against its oracle, D-mode collective bytes equal to the
-   count from the shapes, the stencil and bitonic-stage kernels launched
-   as many times as the SC and BS programs call them, device ms per run.
+   count from the shapes, the stencil and bitonic kernels launched as
+   many times as the SC and BS programs call them, device ms per run.
 
 Before the last line it prints ``{"kernels": [...]}`` and the card's name
 and power limit from nvidia-smi; the last line is ``{"ok": true,
@@ -61,6 +66,11 @@ TOL = {"float32": (2e-5, 1e-4), "bfloat16": (3e-2, 3e-2)}   # atol, rtol
 FLASH_SEQS = (1, 77, 128, 995, 2047)
 RMS_ROWS = (1, 4, 995, 2047)
 RMS_ROWS_MAMBA = (4, 995)       # at mamba2-1.3b's d_inner, 4096
+# the fused norms, (d, rows): the residual add in front of qwen2-1.5b's
+# (1536) and mamba2-1.3b's (2048) pre-norms; mamba2-1.3b's gate (4096)
+FUSED_ROWS = (1, 4, 995)
+ADD_NORM_DIMS = (1536, 2048)
+GATED_NORM_DIM = 4096
 # SSD chunk kernel at mamba2-1.3b's heads (H=64, P=64, N=128), (label, R, Q):
 # the 1000-token prompt (the main shape), a 77-token prompt, one token,
 # and a 2047-token prompt
@@ -82,19 +92,31 @@ BITONIC_CASES = ((131072, 2, 1, 0, "float32"),
                  (32768, 65536, 512, 32768, "float32"),
                  (131072, 64, 16, 0, "int32"),
                  (2 ** 24, 2 ** 24, 1024, 0, "float32"))
+# bitonic_block, (L, size, offset, dtype), tile 2048: BS's 131072 first
+# launch (phases 2..2048, 66 stages; the main shape), its last phase's
+# tail, a D-mode shard's tail with its offset, int32 keys, and a
+# card-filling 2^24; exact
+BITONIC_BLOCK_CASES = ((131072, 2048, 0, "float32"),
+                       (131072, 131072, 0, "float32"),
+                       (32768, 65536, 32768, "float32"),
+                       (131072, 2048, 0, "int32"),
+                       (2 ** 24, 2048, 0, "float32"),
+                       (2 ** 24, 2 ** 24, 0, "float32"))
 # MGMark on a 4-shard mesh at default_size(4): D-mode collective bytes per
 # device from the shapes (aes none; km one (16,32)+(16,) f32 psum; fir 15
 # f32; sc 2 rows of 4096 f32; gd 8 psums of 256 f32; mt (4,2048,2048)
 # f32; bs 3 cross-shard stages of 32768 f32), and the kernels each
-# program must launch (bs: 132 stages with dist < 2048 per 32768 or
-# 131072 elements)
+# program must launch (patterns/bs.py's _steps: a sort of 131072 takes
+# 21 stages with dist >= 2048 and 7 block launches; a D-mode shard of
+# 32768 takes 18 stages with 2048 <= dist < 32768 and 7 block launches)
 MGMARK_SHARDS = 4
 MGMARK_BYTES = {"aes": 0, "km": 2112, "fir": 60, "sc": 32768, "gd": 8192,
                 "mt": 67108864, "bs": 393216}
 MGMARK_LAUNCHES = {("sc", "umode"): {"stencil2d": 1},
                    ("sc", "dmode"): {"stencil2d": 4},
-                   ("bs", "umode"): {"bitonic_stage": 132},
-                   ("bs", "dmode"): {"bitonic_stage": 528}}
+                   ("bs", "umode"): {"bitonic_stage": 21, "bitonic_block": 7},
+                   ("bs", "dmode"): {"bitonic_stage": 72,
+                                     "bitonic_block": 28}}
 PROBE_LEN = 995
 PROBE_ATOL = 0.1                # bf16 logits: a few ulps at |logit| < 8
 F32_PROBE_ATOL = 1e-3           # f32 logits: f32 sums in another order
@@ -203,9 +225,10 @@ def phase_kernels():
     from repro_torch.kernels import ssd
     print("== phase 2: kernels vs their plain versions", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    from repro_torch.kernels import bitonic, stencil
-    cases = {"flash_attention": [], "rmsnorm": [], "ssd_chunk_kernel": [],
-             "stencil2d": [], "bitonic_stage": []}
+    from repro_torch.kernels import bitonic, ops, stencil
+    cases = {"flash_attention": [], "rmsnorm": [], "add_rmsnorm": [],
+             "gated_rmsnorm": [], "ssd_chunk_kernel": [], "stencil2d": [],
+             "bitonic_stage": [], "bitonic_block": []}
 
     def record(name, shape, dtype, got, want, fn, plain_fn, lib_fn, b,
                tol=None, **extra):
@@ -271,12 +294,12 @@ def phase_kernels():
             torch.cuda.synchronize()
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-            ops = 4 * H * hd * S * (S + 1) / 2      # causal pairs only
+            n_ops = 4 * H * hd * S * (S + 1) / 2      # causal pairs only
             record("flash_attention", f"S={S}", dtype, got, want,
                    lambda: fa.flash_attention(q, k, v, causal=True),
                    lambda: ref.flash_attention_ref(q, k, v, True),
                    {name: sdpa(qt, kt, vt, name) for name in SDPA_BACKENDS},
-                   bound(nbytes, ops, dtype))
+                   bound(nbytes, n_ops, dtype))
 
     # qwen2-1.5b's d_model; mamba2-1.3b's gated norm over d_inner
     for d, rows_list in ((1536, RMS_ROWS), (4096, RMS_ROWS_MAMBA)):
@@ -296,6 +319,52 @@ def phase_kernels():
                        lambda: ref.rmsnorm_ref(x, w, 1e-6),
                        lambda: F.rms_norm(x, (d,), w, 1e-6),
                        bound(nbytes, 4 * x.numel(), dtype))
+
+    # the fused norms.  Bytes: x, r or z and w read once, h (add) and out
+    # written once; operations per element: 5 for add + norm (add, square
+    # and sum, two products), 9 for the gated norm (silu's negation, exp,
+    # add and division, the product, then the norm's 4).  Library: the
+    # same function as PyTorch calls, the add or the gate separate from
+    # F.rms_norm (no one call fuses them).
+    for kind, dims in (("add_rmsnorm", ADD_NORM_DIMS),
+                       ("gated_rmsnorm", (GATED_NORM_DIM,))):
+        for d in dims:
+            for rows in FUSED_ROWS:
+                for dtype in ("bfloat16", "float32"):
+                    dt = getattr(torch, dtype)
+                    x = torch.randn(rows, d, generator=gen,
+                                    device="cuda").to(dt)
+                    o = torch.randn(rows, d, generator=gen,
+                                    device="cuda").to(dt)
+                    w = (1 + 0.1 * torch.randn(d, generator=gen,
+                                               device="cuda")).to(dt)
+                    n = x.numel()
+                    if kind == "add_rmsnorm":
+                        h, got = rms.add_rmsnorm(x, o, w, 1e-6)
+                        want_h, want = ref.add_rmsnorm_ref(x, o, w, 1e-6)
+                        torch.cuda.synchronize()
+                        check(torch.equal(h, want_h),
+                              f"add_rmsnorm rows={rows},d={d} {dtype}: h "
+                              f"is not the eager x + r bit for bit")
+                        fn = (lambda: rms.add_rmsnorm(x, o, w, 1e-6))
+                        plain = (lambda: ref.add_rmsnorm_ref(x, o, w, 1e-6))
+                        lib = (lambda: F.rms_norm(x + o, (d,), w, 1e-6))
+                        b = bound((4 * n + d) * x.element_size(), 5 * n,
+                                  dtype)
+                    else:
+                        got = rms.gated_rmsnorm(x, o, w, 1e-6)
+                        want = ref.gated_rmsnorm_ref(x, o, w, 1e-6)
+                        torch.cuda.synchronize()
+                        fn = (lambda: rms.gated_rmsnorm(x, o, w, 1e-6))
+                        plain = (lambda: ref.gated_rmsnorm_ref(x, o, w, 1e-6))
+                        lib = (lambda: F.rms_norm(x * F.silu(o), (d,), w,
+                                                  1e-6))
+                        b = bound((3 * n + d) * x.element_size(), 9 * n,
+                                  dtype)
+                    record(kind, f"rows={rows},d={d}", dtype, got, want, fn,
+                           plain, lib, b, library_calls=(
+                               "x + r; F.rms_norm" if kind == "add_rmsnorm"
+                               else "x * F.silu(z); F.rms_norm"))
 
     # SSD at mamba2-1.3b's heads, f32 as on the model path, with B and C
     # shared by the heads through a head stride of 0 as ops.ssd_chunked
@@ -327,14 +396,14 @@ def phase_kernels():
         nbytes = 4 * (2 * R * H * Q * P + 2 * R * H * Q + 2 * R * Q * N
                       + R * H * N * P)
         pairs = Q * (Q + 1) / 2
-        ops = R * H * (2 * pairs * N + 2 * pairs * P + 2 * Q * N * P)
+        n_ops = R * H * (2 * pairs * N + 2 * pairs * P + 2 * Q * N * P)
         # the kernel's products are 3xTF32 on the tensor cores; the f32
         # CUDA-core bound of the earlier kernel stays beside it
         record("ssd_chunk_kernel", label, "float32", got, want,
                lambda: ssd.ssd_chunk(*args),
                lambda: ref.ssd_chunk_ref(*args), None,
-               bound(nbytes, ops, "tf32x3"), tol=SSD_TOL,
-               bound_ms_f32=bound(nbytes, ops, "float32")[0],
+               bound(nbytes, n_ops, "tf32x3"), tol=SSD_TOL,
+               bound_ms_f32=bound(nbytes, n_ops, "float32")[0],
                max_abs_err_vs_f64=f64)
 
     # stencil2d: bytes img once in, once out (and the K*K weights); 2 K^2
@@ -374,6 +443,48 @@ def phase_kernels():
                lambda: bitonic.bitonic_stage(x, dist, size, offset),
                lambda: ref.bitonic_stage_ref(x, dist, size, offset), None,
                bound(2 * L * x.element_size(), L, "float32"), tol=(0.0, 0.0))
+
+    # bitonic_block: bytes x once in, once out; one operation per element
+    # and stage, as for a stage.  No one PyTorch call computes a run of
+    # stages; BS's whole sort on the kernels is timed beside torch.sort
+    # (the yardstick of the sort, recorded with the main case).
+    from repro_torch.patterns import bs
+    for L, size, offset, dtype in BITONIC_BLOCK_CASES:
+        if dtype == "int32":
+            x = torch.randint(-2 ** 31, 2 ** 31 - 1, (L,), generator=gen,
+                              device="cuda", dtype=torch.int32)
+        else:
+            x = randn(L)
+        got = bitonic.bitonic_block(x, size, bs.BLOCK, offset)
+        want = ref.bitonic_block_ref(x, size, bs.BLOCK, offset)
+        torch.cuda.synchronize()
+        stages = len(ref.bitonic_block_stages(size, bs.BLOCK))
+        extra = {}
+        if (L, size, offset, dtype) == BITONIC_BLOCK_CASES[0]:
+            ops.reset_launches()
+            got_sort = bs.sort(x)
+            counts = ops.launch_counts()
+            sort_launches = {k: counts[k]
+                             for k in ("bitonic_stage", "bitonic_block")}
+            check(torch.equal(got_sort, torch.sort(x).values),
+                  f"bs.sort of {L} on the kernels is not torch.sort")
+            planned = [f"bitonic_{step[0]}" for step in bs._steps(L, bs.BLOCK)]
+            plan = {k: planned.count(k) for k in sort_launches}
+            check(sort_launches == plan,
+                  f"bs.sort of {L} launched {sort_launches}, its plan {plan}")
+            extra.update(sort_ms=time_ms(lambda: bs.sort(x)),
+                         torch_sort_ms=time_ms(lambda: torch.sort(x)),
+                         sort_launches=sort_launches)
+            print(f"  BS sort of {L} f32 on the kernels "
+                  f"(launches {sort_launches}) "
+                  f"{extra['sort_ms']:.4f} ms, torch.sort "
+                  f"{extra['torch_sort_ms']:.4f} ms")
+        shape = f"L={L},size={size}" + (f",offset={offset}" if offset else "")
+        record("bitonic_block", shape, dtype, got, want,
+               lambda: bitonic.bitonic_block(x, size, bs.BLOCK, offset),
+               lambda: ref.bitonic_block_ref(x, size, bs.BLOCK, offset), None,
+               bound(2 * L * x.element_size(), stages * L, "float32"),
+               tol=(0.0, 0.0), **extra)
     return cases
 
 
@@ -394,8 +505,9 @@ def _greedy(api, cfg, params, prompt, n_new):
 
 
 # the kernels each served model's path must launch
-PATH_KERNELS = {"qwen2-1.5b": ("flash_attention", "rmsnorm"),
-                "mamba2-1.3b": ("ssd_chunk_kernel", "rmsnorm")}
+PATH_KERNELS = {"qwen2-1.5b": ("flash_attention", "rmsnorm", "add_rmsnorm"),
+                "mamba2-1.3b": ("ssd_chunk_kernel", "rmsnorm", "add_rmsnorm",
+                                "gated_rmsnorm")}
 
 
 def phase_serve(arch: str, phase: int):
@@ -421,6 +533,9 @@ def phase_serve(arch: str, phase: int):
           f"{cfg.d_model}, V={cfg.vocab_size}) in "
           f"{time.perf_counter() - t0:.1f} s")
 
+    # the backward check draws from its own generator, so the probe and
+    # the traffic below stay the ones earlier runs measured
+    refuse_backward(api, cfg, params, np.random.default_rng(1))
     rng = np.random.default_rng(0)
     probe = torch.as_tensor(rng.integers(0, cfg.vocab_size, PROBE_LEN),
                             device="cuda")[None]
@@ -498,6 +613,39 @@ def phase_serve(arch: str, phase: int):
     del params, eng
     torch.cuda.empty_cache()
     return serve
+
+
+def refuse_backward(api, cfg, params, rng):
+    """The kernels have no backward: with the params requiring grad,
+    ``api.loss(...).backward()`` on the kernel path must raise, never
+    run with a cut graph."""
+    import torch
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 65)),
+                           device="cuda")
+    leaves = []
+    stack = [params]
+    while stack:
+        t = stack.pop()
+        if isinstance(t, dict):
+            stack.extend(t.values())
+        elif t.is_floating_point():
+            leaves.append(t)
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        api.loss(params, cfg, {"tokens": toks[:, :-1],
+                               "targets": toks[:, 1:]}).backward()
+    except RuntimeError as err:
+        check("no backward" in str(err), f"unexpected error: {err}")
+        print(f"  loss().backward() on the kernel path raises: "
+              f"{str(err)[:90]}...")
+    else:
+        raise RuntimeError("loss().backward() ran through kernels that have "
+                           "no backward")
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+            t.grad = None
 
 
 def probe_against_f32(api, cfg, params, probe, outs):
@@ -669,19 +817,29 @@ def main() -> int:
     L, size, dist, _, _ = BITONIC_CASES[0]
     main_case = {"flash_attention": (f"S={PROBE_LEN}", "bfloat16"),
                  "rmsnorm": ("rows=4", "bfloat16"),
+                 "add_rmsnorm": (f"rows=4,d={ADD_NORM_DIMS[0]}", "bfloat16"),
+                 "gated_rmsnorm": (f"rows=4,d={GATED_NORM_DIM}", "bfloat16"),
                  "ssd_chunk_kernel": (SSD_CASES[0][0], "float32"),
                  "stencil2d": (f"{H}x{W},K={K}", "float32"),
                  "bitonic_stage": (f"L={L},size={size},dist={dist}",
-                                   "float32")}
+                                   "float32"),
+                 "bitonic_block": ("L={},size={}".format(
+                     *BITONIC_BLOCK_CASES[0][:2]), "float32")}
     source = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                   "src/repro/kernels/flash_attention.py:76"),
               "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                           "src/repro/kernels/rmsnorm.py:27"),
+              "add_rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                              "src/repro/kernels/rmsnorm.py:27"),
+              "gated_rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                                "src/repro/kernels/rmsnorm.py:27"),
               "ssd_chunk_kernel": ("src/repro_torch/kernels/csrc/ssd.cu",
                                    "src/repro/kernels/ssd.py:50"),
               "stencil2d": ("src/repro_torch/kernels/csrc/stencil.cu",
                             "src/repro/kernels/stencil.py:46"),
               "bitonic_stage": ("src/repro_torch/kernels/csrc/bitonic.cu",
+                                "src/repro/kernels/bitonic.py:40"),
+              "bitonic_block": ("src/repro_torch/kernels/csrc/bitonic.cu",
                                 "src/repro/kernels/bitonic.py:40")}
     kernels = []
     for kname, rows in cases.items():
@@ -697,7 +855,10 @@ def main() -> int:
             **{k: main_row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by",
                                         "library_ms", "shape", "dtype")},
-            **{k: main_row[k] for k in ("library", "bound_ms_f32")
+            **{k: main_row[k] for k in ("library", "library_calls",
+                                        "bound_ms_f32",
+                                        "sort_ms", "torch_sort_ms",
+                                        "sort_launches")
                if k in main_row},
             "max_abs_err_all_cases": max(r["max_abs_err"] for r in rows),
             "sass": sass.get(source[kname][0].split("/")[-1][:-3]),

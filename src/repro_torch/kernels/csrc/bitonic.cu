@@ -1,4 +1,5 @@
-// One bitonic compare-exchange stage for Hopper (sm_90a).
+// Bitonic compare-exchange stages for Hopper (sm_90a): one stage a launch,
+// or a run of in-tile stages a launch.
 //
 // Replaces: the Pallas TPU kernel src/repro/kernels/bitonic.py::
 // bitonic_stage (body _bitonic_kernel): element i is paired with
@@ -25,6 +26,22 @@
 // for every size, not only size >= 2 * dist.  The compare keeps one of
 // the two values exactly (a select, no arithmetic), so the output is a
 // permutation of the input.
+//
+// The block kernel (bitonic_block_fwd) runs many stages in one launch.
+// A sort of L elements has log2(L) (log2(L) + 1) / 2 stages (153 at BS's
+// 131072), and a stage is 2 us of launch latency against 0.3 us of bytes,
+// so one launch per stage leaves the card mostly idle.  Every stage with
+// dist < T keeps its pairs inside one aligned tile of T elements, and such
+// stages come in runs: the whole of phases 2..T, and the tail dist = T/2
+// .. 1 of each later phase.  One block of T/2 threads (T = 2048, the TPU
+// API's block: 8 KB of shared memory in f32 or int32) loads its tile
+// once, runs the run's stages in shared memory with a barrier between
+// them, and stores the tile once.  Its function is exactly the
+// composition of the one-stage kernel's calls (ref.bitonic_block_ref):
+// the same pairs, directions from the same global indices (the launch
+// takes offsets that are multiples of the tile, as a sort's shards are).
+// A sort then takes one block launch per phase above T and one for phases
+// 2..T, plus the one-stage kernel for each stage with dist >= T.
 //
 // NaN: jnp.minimum propagates a NaN and this select does not order it.
 // The MGMark inputs hold no NaN, and no test sends one.
@@ -58,6 +75,60 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr int kMaxTile = 2048;
+
+// One block per tile of 2^log_tile elements, 2^(log_tile - 1) threads, each
+// owning one pair per stage.  Runs phases 2^log_first .. 2^log_last, each
+// from dist = min(size, tile) / 2 down to 1.  With offset a multiple of
+// the tile (the launcher checks it), a pair's two elements share their
+// direction (dist < size), and bit `size` of the global index is bit
+// `size` of i below the tile and of the tile's start from the tile up: a
+// 32-bit test a stage, or one test a phase.
+template <typename T>
+__global__ void __launch_bounds__(kMaxTile / 2)
+    bitonic_block_kernel(const T* __restrict__ x, T* __restrict__ out,
+                         int log_tile, int log_first, int log_last,
+                         long long offset) {
+  __shared__ T tile[kMaxTile];
+  const int half = 1 << (log_tile - 1);
+  const int t = threadIdx.x;
+  const long long base = (long long)blockIdx.x << log_tile;
+  tile[t] = x[base + t];
+  tile[t + half] = x[base + t + half];
+  __syncthreads();
+  for (int ls = log_first; ls <= log_last; ++ls) {
+    const bool whole_tile = ls >= log_tile;
+    const bool tile_asc = ((offset + base) & (1LL << ls)) == 0;
+    const int size = whole_tile ? 0 : 1 << ls;
+    for (int dist = (whole_tile ? 1 << log_tile : 1 << ls) >> 1; dist >= 1;
+         dist >>= 1) {
+      const int i = ((t & ~(dist - 1)) << 1) | (t & (dist - 1));
+      const int j = i + dist;
+      const T a = tile[i], b = tile[j];
+      const bool b_less = b < a;
+      const T lo = b_less ? b : a;
+      const T hi = b_less ? a : b;
+      const bool asc = whole_tile ? tile_asc : (i & size) == 0;
+      tile[i] = asc ? lo : hi;
+      tile[j] = asc ? hi : lo;
+      __syncthreads();
+    }
+  }
+  out[base + t] = tile[t];
+  out[base + t + half] = tile[t + half];
+}
+
+template <typename T>
+cudaError_t launch_block(const void* x, void* out, long long L, int log_tile,
+                         int log_first, int log_last, long long offset,
+                         cudaStream_t stream) {
+  bitonic_block_kernel<T><<<(unsigned)(L >> log_tile), 1 << (log_tile - 1),
+                            0, stream>>>(static_cast<const T*>(x),
+                                         static_cast<T*>(out), log_tile,
+                                         log_first, log_last, offset);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch(const void* x, void* out, long long L, int log_dist,
                    long long size, long long offset, cudaStream_t stream) {
@@ -88,6 +159,33 @@ extern "C" int bitonic_stage_fwd(int dtype, const void* x, void* out,
       return launch<float>(x, out, L, log_dist, size, offset, s);
     case kInt32:
       return launch<int32_t>(x, out, L, log_dist, size, offset, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// x, out: (L,) contiguous, of one dtype (0 f32, 2 int32), L and offset
+// multiples of the tile 2^log_tile (1 <= log_tile <= 11, L / tile <
+// 2^31); phases 2^log_first .. 2^log_last, 1 <= log_first <= log_last <= 61.
+// Returns the cudaError_t of the launch.
+extern "C" int bitonic_block_fwd(int dtype, const void* x, void* out,
+                                 long long L, int log_tile, int log_first,
+                                 int log_last, long long offset,
+                                 void* stream) {
+  using namespace repro_torch;
+  if (L == 0) return cudaSuccess;
+  if (L < 0 || log_tile < 1 || log_tile > 11 || (L % (1LL << log_tile)) ||
+      (L >> log_tile) >= (1LL << 31) || log_first < 1 ||
+      log_first > log_last || log_last > 61 || offset < 0 ||
+      (offset % (1LL << log_tile)))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kFloat32:
+      return launch_block<float>(x, out, L, log_tile, log_first, log_last,
+                                 offset, s);
+    case kInt32:
+      return launch_block<int32_t>(x, out, L, log_tile, log_first, log_last,
+                                   offset, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,23 +1,38 @@
-// RMSNorm forward for Hopper (sm_90a).
+// RMSNorm forward for Hopper (sm_90a), with the model's prologue fused in.
 //
 // Replaces: the Pallas TPU kernel src/repro/kernels/rmsnorm.py::rmsnorm
 // (body _rms_kernel): out = x * rsqrt(mean(x^2) + eps) * w per row, f32
-// math, output in x's dtype.
+// math, output in x's dtype.  Two optional operands fuse what the models
+// do in front of the norm (the TPU kernel has neither; XLA fuses them
+// there):
+//   residual r: h = round(x + r) is written out, and out = rmsnorm(h) * w
+//               (the pre-norm block's residual add);
+//   gate z:     out = rmsnorm(round(x * round(silu(z)))) * w (Mamba2's
+//               gated norm).
+// "round" is the rounding to the storage dtype where the eager ops round,
+// so h is bit-equal to the eager x + r, and out differs from the plain
+// version only by the order of the f32 sum of squares.
 //
-// What bounds it on this card: bytes.  Each element costs about four
-// operations against 4 to 8 bytes read and written, two orders of
-// magnitude below the operations per byte at which the H100's compute
-// becomes the limit.  On the serving path the rows are d = 1536 wide:
-// 1 to 4 rows per decode call (a few microseconds of launch latency
-// dominate) and up to max_seq rows per prefill.
+// What bounds it on this card: neither bytes nor operations at the model's
+// shapes.  Each element costs a few operations against 4 to 16 bytes read
+// and written, far below the operations per byte at which compute becomes
+// the limit, and a decode call (1 to 4 rows of 1536 to 4096) moves tens of
+// kilobytes: a few nanoseconds of bandwidth against microseconds of launch
+// latency.  So what the design cuts is launches: the add in front of every
+// pre-norm, and the silu and the product in front of the gated norm, were
+// a launch each.
 //
-// What the design does about it: one block per row, so each row is read
-// from device memory once (the second pass over it is served by L1) and
-// written once; 16-byte vector loads and stores wherever the row and
-// pointers allow, scalar ones otherwise; the sum of squares stays in f32
-// registers and is reduced with warp shuffles plus one shared-memory step
-// across the block's warps.  The TPU kernel's padding of rows to a block
-// of 256 is not needed: the grid is exactly one block per row.  No
+// What the design does about it: one block per row; with fewer rows than
+// SMs (a decode call) the block is sized to the row, one 16-byte pack a
+// thread up to 1024 threads, so each thread has one short chain of work,
+// and with more rows it has at most 256 threads; each thread keeps its part
+// of the row (after the prologue) in registers between the sum of squares
+// and the scale, so x, r and z are read from device memory once and h and
+// out written once; 16-byte vector loads and stores wherever the row and
+// pointers allow.  Rows wider than the registers hold (more than 4 packs
+// a thread) or off the 16-byte grid take a loop that recomputes the
+// prologue in the second pass.  The sum of squares is reduced with
+// warp shuffles plus one shared-memory step across the block's warps.  No
 // scratch in device memory, no atomics, nothing allocated.
 #include <stdint.h>
 
@@ -26,49 +41,114 @@
 namespace repro_torch {
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 1024;
+enum Mode : int { kPlain = 0, kResidual = 1, kGate = 2 };
 
 template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Pack {
   T v[VEC];
 };
 
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-    rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                   T* __restrict__ out, int d, float eps) {
-  using P = Pack<T, VEC>;
-  const P* xr = reinterpret_cast<const P*>(x + (size_t)blockIdx.x * d);
-  const P* wr = reinterpret_cast<const P*>(w);
-  P* orow = reinterpret_cast<P*>(out + (size_t)blockIdx.x * d);
-  const int nvec = d / VEC;
-
-  float ss = 0.f;
-  for (int i = threadIdx.x; i < nvec; i += kThreads) {
-    const P p = xr[i];
+// The norm's input of pack i in f32, from x and (by MODE) r or z; with
+// kResidual and store_h, h's pack is written to hrow.
+template <typename T, int VEC, int MODE>
+__device__ __forceinline__ void prologue(const Pack<T, VEC>* xr,
+                                         const Pack<T, VEC>* orow,
+                                         Pack<T, VEC>* hrow, int i,
+                                         bool store_h, float (&v)[VEC]) {
+  const Pack<T, VEC> xp = xr[i];
+  if constexpr (MODE == kPlain) {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) v[j] = to_f32(xp.v[j]);
+  } else if constexpr (MODE == kResidual) {
+    const Pack<T, VEC> rp = orow[i];
+    Pack<T, VEC> hp;
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
-      const float f = to_f32(p.v[j]);
-      ss += f * f;
+      hp.v[j] = from_f32<T>(to_f32(xp.v[j]) + to_f32(rp.v[j]));
+      v[j] = to_f32(hp.v[j]);
+    }
+    if (store_h) hrow[i] = hp;
+  } else {
+    const Pack<T, VEC> zp = orow[i];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const float z = to_f32(zp.v[j]);
+      const float s = to_f32(from_f32<T>(z / (1.f + expf(-z))));
+      v[j] = to_f32(from_f32<T>(to_f32(xp.v[j]) * s));
     }
   }
-  __shared__ float warp_sums[kThreads / 32];
-  ss = warp_sum(ss);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = ss;
+}
+
+// The sum of v over the block (blockDim.x a multiple of 32).
+__device__ __forceinline__ float block_sum(float v) {
+  __shared__ float warp_sums[kMaxThreads / 32];
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = v;
   __syncthreads();
   float total = 0.f;
-#pragma unroll
-  for (int i = 0; i < kThreads / 32; ++i) total += warp_sums[i];
-  const float inv = rsqrtf(total / (float)d + eps);
+  for (int i = 0; i < (int)(blockDim.x >> 5); ++i) total += warp_sums[i];
+  return total;
+}
 
-  for (int i = threadIdx.x; i < nvec; i += kThreads) {
-    const P xp = xr[i];
-    const P wp = wr[i];
-    P op;
+// MAXP > 0: each thread holds at most MAXP packs of the row in registers;
+// MAXP == 0: any width, the prologue recomputed in the second pass.
+template <typename T, int VEC, int MAXP, int MODE>
+__global__ void __launch_bounds__(kMaxThreads)
+    rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ other,
+                   const T* __restrict__ w, T* __restrict__ out,
+                   T* __restrict__ h, int d, float eps) {
+  using P = Pack<T, VEC>;
+  const size_t row = (size_t)blockIdx.x * d;
+  const P* xr = reinterpret_cast<const P*>(x + row);
+  const P* orow = reinterpret_cast<const P*>(MODE == kPlain ? x : other + row);
+  P* hrow = reinterpret_cast<P*>(MODE == kResidual ? h + row : out + row);
+  const P* wr = reinterpret_cast<const P*>(w);
+  P* outr = reinterpret_cast<P*>(out + row);
+  const int nvec = d / VEC;
+  float ss = 0.f;
+
+  if constexpr (MAXP > 0) {
+    float v[MAXP][VEC];
 #pragma unroll
-    for (int j = 0; j < VEC; ++j)
-      op.v[j] = from_f32<T>(to_f32(xp.v[j]) * inv * to_f32(wp.v[j]));
-    orow[i] = op;
+    for (int k = 0; k < MAXP; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      if (i < nvec) {
+        prologue<T, VEC, MODE>(xr, orow, hrow, i, true, v[k]);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) ss += v[k][j] * v[k][j];
+      }
+    }
+    const float inv = rsqrtf(block_sum(ss) / (float)d + eps);
+#pragma unroll
+    for (int k = 0; k < MAXP; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      if (i < nvec) {
+        const P wp = wr[i];
+        P op;
+#pragma unroll
+        for (int j = 0; j < VEC; ++j)
+          op.v[j] = from_f32<T>(v[k][j] * inv * to_f32(wp.v[j]));
+        outr[i] = op;
+      }
+    }
+  } else {
+    float v[VEC];
+    for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
+      prologue<T, VEC, MODE>(xr, orow, hrow, i, true, v);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) ss += v[j] * v[j];
+    }
+    const float inv = rsqrtf(block_sum(ss) / (float)d + eps);
+    for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
+      prologue<T, VEC, MODE>(xr, orow, hrow, i, false, v);
+      const P wp = wr[i];
+      P op;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j)
+        op.v[j] = from_f32<T>(v[j] * inv * to_f32(wp.v[j]));
+      outr[i] = op;
+    }
   }
 }
 
@@ -76,34 +156,101 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* w, void* out, int rows, int d,
-                   float eps, cudaStream_t stream) {
+// The current device's SM count, read from the device once per device.
+cudaError_t sm_count(int* sms) {
+  constexpr int kMaxDevices = 64;
+  static int cached[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && cached[dev] > 0) {
+    *sms = cached[dev];
+    return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < kMaxDevices) cached[dev] = *sms;
+  return err;
+}
+
+// Threads for each of `rows` rows of n items (packs or elements), in whole
+// warps: one item each, up to kMaxThreads, when the rows leave SMs idle
+// (a decode call's few rows: the shortest chain a thread); at most 256
+// when they fill the card (a prefill: more blocks resident on each SM).
+int threads_for(int rows, int sms, int n) {
+  const int cap = rows < sms ? kMaxThreads : 256;
+  const int warps = (n + 31) / 32;
+  return warps * 32 < cap ? warps * 32 : cap;
+}
+
+template <typename T, int MODE>
+cudaError_t launch(const void* x, const void* other, const void* w, void* out,
+                   void* h, int rows, int d, float eps, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   const T* xt = static_cast<const T*>(x);
+  const T* ot = static_cast<const T*>(other);
   const T* wt = static_cast<const T*>(w);
-  T* ot = static_cast<T*>(out);
-  if (d % kVec == 0 && aligned16(x) && aligned16(w) && aligned16(out))
-    rmsnorm_kernel<T, kVec><<<rows, kThreads, 0, stream>>>(xt, wt, ot, d, eps);
+  T* outt = static_cast<T*>(out);
+  T* ht = static_cast<T*>(h);
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const bool vec = d % kVec == 0 && aligned16(x) && aligned16(w) &&
+                   aligned16(out) && (other == nullptr || aligned16(other)) &&
+                   (h == nullptr || aligned16(h));
+  if (!vec) {
+    rmsnorm_kernel<T, 1, 0, MODE>
+        <<<rows, threads_for(rows, sms, d), 0, stream>>>(xt, ot, wt, outt, ht,
+                                                         d, eps);
+    return cudaGetLastError();
+  }
+  const int threads = threads_for(rows, sms, d / kVec);
+  const int packs = (d / kVec + threads - 1) / threads;
+  if (packs <= 1)
+    rmsnorm_kernel<T, kVec, 1, MODE><<<rows, threads, 0, stream>>>(
+        xt, ot, wt, outt, ht, d, eps);
+  else if (packs <= 2)
+    rmsnorm_kernel<T, kVec, 2, MODE><<<rows, threads, 0, stream>>>(
+        xt, ot, wt, outt, ht, d, eps);
+  else if (packs <= 4)
+    rmsnorm_kernel<T, kVec, 4, MODE><<<rows, threads, 0, stream>>>(
+        xt, ot, wt, outt, ht, d, eps);
   else
-    rmsnorm_kernel<T, 1><<<rows, kThreads, 0, stream>>>(xt, wt, ot, d, eps);
+    rmsnorm_kernel<T, kVec, 0, MODE><<<rows, threads, 0, stream>>>(
+        xt, ot, wt, outt, ht, d, eps);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_mode(const void* x, const void* r, const void* z,
+                        const void* w, void* out, void* h, int rows, int d,
+                        float eps, cudaStream_t s) {
+  if (r != nullptr)
+    return launch<T, kResidual>(x, r, w, out, h, rows, d, eps, s);
+  if (z != nullptr) return launch<T, kGate>(x, z, w, out, h, rows, d, eps, s);
+  return launch<T, kPlain>(x, nullptr, w, out, h, rows, d, eps, s);
 }
 
 }  // namespace
 }  // namespace repro_torch
 
-// x, out: (rows, d) contiguous; w: (d,), all of one dtype.  Returns the
+// x, out: (rows, d) contiguous; w: (d,); r, z and h null or (rows, d)
+// contiguous; all of one dtype.  r (with h, which receives x + r) selects
+// the residual prologue, z the gate; at most one of them.  Returns the
 // cudaError_t of the launch.
-extern "C" int rmsnorm_fwd(int dtype, const void* x, const void* w, void* out,
+extern "C" int rmsnorm_fwd(int dtype, const void* x, const void* r,
+                           const void* z, const void* w, void* out, void* h,
                            int rows, int d, float eps, void* stream) {
   using namespace repro_torch;
+  if (rows < 0 || d <= 0 || (r != nullptr && z != nullptr) ||
+      ((r != nullptr) != (h != nullptr)))
+    return cudaErrorInvalidValue;
   if (rows == 0) return cudaSuccess;
-  if (rows < 0 || d <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kFloat32: return launch<float>(x, w, out, rows, d, eps, s);
-    case kBFloat16: return launch<__nv_bfloat16>(x, w, out, rows, d, eps, s);
+    case kFloat32:
+      return launch_mode<float>(x, r, z, w, out, h, rows, d, eps, s);
+    case kBFloat16:
+      return launch_mode<__nv_bfloat16>(x, r, z, w, out, h, rows, d, eps, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -6,6 +6,12 @@ A wrapper given CPU tensors runs the kernel's plain PyTorch version
 it launches the CUDA kernel or raises; it never falls back.  Each
 wrapper carries a plain integer ``launches`` that counts its kernel
 launches, so a run can show that its path went through the kernels.
+
+The CUDA kernels have no backward (nor have the TPU kernels they port),
+and their outputs, filled through ctypes, carry no ``grad_fn``.  So on
+the card a wrapper refuses, with ``check_no_grad``, any input that
+requires grad while grad mode is on, rather than cut the graph without
+a word; on the CPU the plain versions differentiate as usual.
 """
 from __future__ import annotations
 
@@ -21,9 +27,10 @@ from . import rmsnorm as _rms
 from . import ssd as _ssd
 from . import stencil as _stencil
 
-__all__ = ["flash_attention", "rmsnorm", "ssd_chunk_kernel", "ssd_chunked",
-           "stencil2d", "bitonic_stage", "launch_counts", "reset_launches",
-           "ref"]
+__all__ = ["flash_attention", "rmsnorm", "add_rmsnorm", "gated_rmsnorm",
+           "ssd_chunk_kernel", "ssd_chunked", "stencil2d", "bitonic_stage",
+           "bitonic_block", "check_no_grad", "launch_counts",
+           "reset_launches", "ref"]
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -31,6 +38,19 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     if len(devices) != 1:
         raise ValueError(f"tensors on more than one device: {devices}")
     return devices.pop().type == "cpu"
+
+
+def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would need a backward of kernel ``name``: grad
+    mode is on and an input requires grad.  The wrappers call it before
+    they launch on the card; under ``torch.no_grad()`` it passes."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input requires "
+            f"grad.  Training through the kernels waits for the port's "
+            f"training slice; until then train on the plain path "
+            f"(cfg.replace(use_kernels=False)), or call under "
+            f"torch.no_grad() to serve")
 
 
 def flash_attention(q, k, v, causal: bool = True):
@@ -42,6 +62,7 @@ def flash_attention(q, k, v, causal: bool = True):
                          f"{q.shape[1]} != {k.shape[1]}")
     if _on_cpu(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal)
+    check_no_grad("flash_attention", q, k, v)
     out = _fa.flash_attention(q, k, v, causal=causal)
     flash_attention.launches += 1
     return out
@@ -51,8 +72,31 @@ def rmsnorm(x, w, eps: float = 1e-6):
     """x (..., d), w (d,) -> x * rsqrt(mean(x^2) + eps) * w, fused."""
     if _on_cpu(x, w):
         return ref.rmsnorm_ref(x, w, eps)
+    check_no_grad("rmsnorm", x, w)
     out = _rms.rmsnorm(x, w, eps)
     rmsnorm.launches += 1
+    return out
+
+
+def add_rmsnorm(x, r, w, eps: float = 1e-6):
+    """x, r (..., d), w (d,) -> (h, out): the residual add h = x + r and
+    out = rmsnorm(h, w), in one launch on the card."""
+    if _on_cpu(x, r, w):
+        return ref.add_rmsnorm_ref(x, r, w, eps)
+    check_no_grad("add_rmsnorm", x, r, w)
+    out = _rms.add_rmsnorm(x, r, w, eps)
+    add_rmsnorm.launches += 1
+    return out
+
+
+def gated_rmsnorm(x, z, w, eps: float = 1e-6):
+    """x, z (..., d), w (d,) -> rmsnorm(x * silu(z), w) (Mamba2's gated
+    norm), in one launch on the card."""
+    if _on_cpu(x, z, w):
+        return ref.gated_rmsnorm_ref(x, z, w, eps)
+    check_no_grad("gated_rmsnorm", x, z, w)
+    out = _rms.gated_rmsnorm(x, z, w, eps)
+    gated_rmsnorm.launches += 1
     return out
 
 
@@ -62,6 +106,7 @@ def ssd_chunk_kernel(x, dt, cs, Bm, Cm):
     only (``kernels/ssd.py`` says what else the kernel takes)."""
     if _on_cpu(x, dt, cs, Bm, Cm):
         return ref.ssd_chunk_ref(x, dt, cs, Bm, Cm)
+    check_no_grad("ssd_chunk_kernel", x, dt, cs, Bm, Cm)
     out = _ssd.ssd_chunk(x, dt, cs, Bm, Cm)
     ssd_chunk_kernel.launches += 1
     return out
@@ -124,6 +169,7 @@ def stencil2d(img, kern):
     img and K in {3, 5} (``kernels/stencil.py``)."""
     if _on_cpu(img, kern):
         return ref.stencil2d_ref(img, kern)
+    check_no_grad("stencil2d", img, kern)
     out = _stencil.stencil2d(img, kern)
     stencil2d.launches += 1
     return out
@@ -146,18 +192,40 @@ def bitonic_stage(x, dist: int, size: int, block: int = 2048,
                          f"== 0, got dist={dist}, block={block}, L={L}")
     if _on_cpu(x):
         return ref.bitonic_stage_ref(x, dist, size, offset)
+    check_no_grad("bitonic_stage", x)
     out = _bitonic.bitonic_stage(x, dist, size, offset)
     bitonic_stage.launches += 1
     return out
 
 
-flash_attention.launches = 0
-rmsnorm.launches = 0
-ssd_chunk_kernel.launches = 0
-stencil2d.launches = 0
-bitonic_stage.launches = 0
-_WRAPPERS = (flash_attention, rmsnorm, ssd_chunk_kernel, stencil2d,
-             bitonic_stage)
+def bitonic_block(x, size: int, block: int = 2048, offset: int = 0):
+    """The stages of a sort of x (L,) that stay inside one block of
+    T = min(block, L) elements, in one launch on the card: every stage of
+    the phases 2, 4, ..., size if size <= T (a sort's first launch, at
+    size = T), else phase ``size``'s stages with dist T/2, ..., 1.
+    Directions come from the global index offset + i, as in
+    ``bitonic_stage``.  Exactly ``ref.bitonic_block_ref``: the
+    composition of those ``bitonic_stage`` calls.  T must be a power of
+    two >= 2 dividing L and offset (a shard's start, as in a sort), at most
+    2048 on the card."""
+    L = x.shape[0]
+    block = min(block, L)
+    if not (block >= 2 and block & (block - 1) == 0 and L % block == 0
+            and offset % block == 0 and size >= 2 and size & (size - 1) == 0):
+        raise ValueError(f"bitonic_block takes a power-of-two block >= 2 "
+                         f"dividing L and offset, and a power-of-two size >= "
+                         f"2, got block={block}, L={L}, offset={offset}, "
+                         f"size={size}")
+    if _on_cpu(x):
+        return ref.bitonic_block_ref(x, size, block, offset)
+    check_no_grad("bitonic_block", x)
+    out = _bitonic.bitonic_block(x, size, block, offset)
+    bitonic_block.launches += 1
+    return out
+
+
+_WRAPPERS = (flash_attention, rmsnorm, add_rmsnorm, gated_rmsnorm,
+             ssd_chunk_kernel, stencil2d, bitonic_stage, bitonic_block)
 
 
 def launch_counts() -> typing.Dict[str, int]:
@@ -167,3 +235,6 @@ def launch_counts() -> typing.Dict[str, int]:
 def reset_launches() -> None:
     for fn in _WRAPPERS:
         fn.launches = 0
+
+
+reset_launches()

@@ -40,6 +40,19 @@ def rmsnorm_ref(x, w, eps: float = 1e-6):
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
 
 
+def add_rmsnorm_ref(x, r, w, eps: float = 1e-6):
+    """The residual add in front of a pre-norm: h = x + r (rounded to the
+    dtype, as the eager add is), out = rmsnorm_ref(h, w) -> (h, out)."""
+    h = x + r
+    return h, rmsnorm_ref(h, w, eps)
+
+
+def gated_rmsnorm_ref(x, z, w, eps: float = 1e-6):
+    """Mamba2's gated norm: rmsnorm_ref(x * silu(z), w), silu(z) and the
+    product each rounded to the dtype, as the eager ops are."""
+    return rmsnorm_ref(x * torch.nn.functional.silu(z), w, eps)
+
+
 def ssd_chunk_ref(x, dt, cs, Bm, Cm):
     """Intra-chunk SSD.  x (R,H,Q,P); dt/cs (R,H,Q); Bm/Cm (R,H,Q,N)
     -> (y_diag (R,H,Q,P) f32, states (R,H,N,P) f32), f32 math:
@@ -89,6 +102,26 @@ def bitonic_stage_ref(x, dist: int, size: int, offset: int = 0):
     take_min = (idx < partner) == asc
     return torch.where(take_min, torch.minimum(x, other),
                        torch.maximum(x, other))
+
+
+def bitonic_block_stages(size: int, tile: int):
+    """(size, dist) of the stages ``bitonic_block_ref`` runs, in order:
+    with size <= tile every stage of the phases 2, 4, ..., size; with
+    size > tile the stages of phase ``size`` with dist tile/2, ..., 1.
+    Each stays inside one aligned tile of ``tile`` elements."""
+    sizes = [size] if size > tile else [1 << k for k in
+                                        range(1, size.bit_length())]
+    return [(s, d) for s in sizes
+            for d in (1 << k for k in
+                      range(min(s, tile).bit_length() - 2, -1, -1))]
+
+
+def bitonic_block_ref(x, size: int, tile: int = 2048, offset: int = 0):
+    """The composition of ``bitonic_stage_ref`` over
+    ``bitonic_block_stages(size, tile)``."""
+    for s, d in bitonic_block_stages(size, tile):
+        x = bitonic_stage_ref(x, d, s, offset)
+    return x
 
 
 def bitonic_sort_ref(x):

@@ -6,7 +6,8 @@ axis, and every module is ``init_*(gen, cfg, device) -> params`` plus
 ``apply(params, x, ...) -> y``.  Randomness comes from an explicit
 ``torch.Generator`` on the target device.
 
-``rms_norm`` and ``attn_impl="flash"`` go through the hand-written
+``rms_norm`` (and its fused forms ``add_rms_norm`` and
+``gated_rms_norm``) and ``attn_impl="flash"`` go through the hand-written
 kernels (``repro_torch.kernels.ops``) when ``cfg.use_kernels``, else
 through their plain versions.  The projections, the MLP, decode
 attention and ``unembed`` are plain tensor code, as the reference leaves
@@ -75,6 +76,26 @@ def rms_norm(x, weight, eps: float = 1e-6, use_kernel: bool = True):
     if use_kernel:
         return kops.rmsnorm(x.contiguous(), weight, eps)
     return kref.rmsnorm_ref(x, weight, eps)
+
+
+def add_rms_norm(h, r, weight, eps: float = 1e-6, use_kernel: bool = True):
+    """A residual add and the pre-norm after it: (h + r, rms_norm(h + r)),
+    one launch of the fused kernel (h + r is written out of place); with
+    r None, (h, rms_norm(h)).  Callers defer each block's residual add to
+    the next norm, so no add runs on its own."""
+    if r is None:
+        return h, rms_norm(h, weight, eps, use_kernel)
+    if use_kernel:
+        return kops.add_rmsnorm(h.contiguous(), r.contiguous(), weight, eps)
+    return kref.add_rmsnorm_ref(h, r, weight, eps)
+
+
+def gated_rms_norm(x, z, weight, eps: float = 1e-6, use_kernel: bool = True):
+    """rms_norm(x * silu(z)) (Mamba2's gated norm), one launch of the fused
+    kernel, or its plain version."""
+    if use_kernel:
+        return kops.gated_rmsnorm(x.contiguous(), z.contiguous(), weight, eps)
+    return kref.gated_rmsnorm_ref(x, z, weight, eps)
 
 
 # --------------------------------------------------------------------------

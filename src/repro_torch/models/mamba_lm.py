@@ -43,13 +43,22 @@ def _norm(h, w, cfg: ModelConfig):
     return L.rms_norm(h, w, cfg.norm_eps, use_kernel=cfg.use_kernels)
 
 
+def _add_norm(h, y, w, cfg: ModelConfig):
+    return L.add_rms_norm(h, y, w, cfg.norm_eps, use_kernel=cfg.use_kernels)
+
+
+# The layer loops carry each block's output ``y`` to the next norm, where
+# the residual add h + y runs fused into the norm's launch (the last one
+# into ln_f); the values are the reference's h = h + block(norm(h)).
+
 def forward(p: Params, cfg: ModelConfig, tokens):
     """tokens (B,S) int -> (logits (B,S,V) f32, aux 0.0)."""
-    h = L.embed(p, tokens)
+    h, y = L.embed(p, tokens), None
     for i in range(cfg.num_layers):
         lp = L.layer_slice(p["layers"], i)
-        h = h + S.mamba2_block(lp["ssm"], _norm(h, lp["ln"], cfg), cfg)
-    h = _norm(h, p["ln_f"], cfg)
+        h, x = _add_norm(h, y, lp["ln"], cfg)
+        y = S.mamba2_block(lp["ssm"], x, cfg)
+    h = _add_norm(h, y, p["ln_f"], cfg)[1]
     return L.unembed(p, h, cfg), 0.0
 
 
@@ -81,15 +90,14 @@ def prefill(p: Params, cfg: ModelConfig, tokens, cache: dict):
     """Run the prompt from a zero state, write each layer's final SSM
     state and conv tail into the cache IN PLACE, and return the logits of
     the last position and the cache with ``pos = S``."""
-    h = L.embed(p, tokens)
+    h, y = L.embed(p, tokens), None
     for i in range(cfg.num_layers):
         lp = L.layer_slice(p["layers"], i)
-        y, st = S.mamba2_block(lp["ssm"], _norm(h, lp["ln"], cfg), cfg,
-                               return_state=True)
-        h = h + y
+        h, x = _add_norm(h, y, lp["ln"], cfg)
+        y, st = S.mamba2_block(lp["ssm"], x, cfg, return_state=True)
         cache["ssm"][i] = st["ssm"]
         cache["conv"][i] = st["conv"]
-    h = _norm(h[:, -1:], p["ln_f"], cfg)
+    h = _norm(h[:, -1:] + y[:, -1:], p["ln_f"], cfg)   # the last row only
     pos = torch.tensor(tokens.shape[1], dtype=torch.int32,
                        device=cache["ssm"].device)
     return L.unembed(p, h, cfg)[:, 0], {"ssm": cache["ssm"],
@@ -99,16 +107,15 @@ def prefill(p: Params, cfg: ModelConfig, tokens, cache: dict):
 def decode_step(p: Params, cfg: ModelConfig, cache: dict, token):
     """token (B,) int -> (logits (B,V) f32, cache).  The states are
     updated in place; the returned cache has ``pos + 1``."""
-    h = L.embed(p, token[:, None])[:, 0]
+    h, y = L.embed(p, token[:, None])[:, 0], None
     for i in range(cfg.num_layers):
         lp = L.layer_slice(p["layers"], i)
-        y, st = S.mamba2_step(lp["ssm"], _norm(h, lp["ln"], cfg),
-                              {"ssm": cache["ssm"][i],
-                               "conv": cache["conv"][i]}, cfg)
-        h = h + y
+        h, x = _add_norm(h, y, lp["ln"], cfg)
+        y, st = S.mamba2_step(lp["ssm"], x, {"ssm": cache["ssm"][i],
+                                              "conv": cache["conv"][i]}, cfg)
         cache["ssm"][i] = st["ssm"]
         cache["conv"][i] = st["conv"]
-    h = _norm(h[:, None], p["ln_f"], cfg)
+    h = _add_norm(h, y, p["ln_f"], cfg)[1][:, None]
     return L.unembed(p, h, cfg)[:, 0], {"ssm": cache["ssm"],
                                         "conv": cache["conv"],
                                         "pos": cache["pos"] + 1}

@@ -173,8 +173,8 @@ def init_mamba2(gen: torch.Generator, cfg, n_layers: int) -> Params:
 
 def _gated_out(p: Params, y, z, cfg):
     """rms_norm(y * silu(z)) @ out_proj, y already in the model dtype."""
-    y = L.rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps,
-                   use_kernel=cfg.use_kernels)
+    y = L.gated_rms_norm(y, z, p["norm_w"], cfg.norm_eps,
+                         use_kernel=cfg.use_kernels)
     return y @ p["out_proj"]
 
 

@@ -53,20 +53,27 @@ def init(seed, cfg: ModelConfig, device="cuda") -> Params:
     return p
 
 
-def _norm(h, w, cfg: ModelConfig):
-    return L.rms_norm(h, w, cfg.norm_eps, use_kernel=cfg.use_kernels)
+def _add_norm(h, r, w, cfg: ModelConfig):
+    return L.add_rms_norm(h, r, w, cfg.norm_eps, use_kernel=cfg.use_kernels)
 
 
 # --------------------------------------------------------------------------
 # forward (train / prefill)
 # --------------------------------------------------------------------------
+# The layer loops carry each block's last residual branch ``r`` (the MLP
+# output) to the next norm, where the add h + r runs fused into the norm's
+# launch; the last one fuses into ln_f.  The values are the reference's
+# h = h + a; h = h + mlp(norm(h)).
 
-def _layer_fwd(lp: Params, h, cfg: ModelConfig, positions):
-    """One pre-norm block over the whole sequence. Returns (h, (k, v))."""
-    a, kv = L.attention_block(lp["attn"], _norm(h, lp["ln1"], cfg), cfg,
-                              positions=positions, causal=True)
-    h = h + a
-    return h + L.swiglu(lp["mlp"], _norm(h, lp["ln2"], cfg)), kv
+def _layer_fwd(lp: Params, h, r, cfg: ModelConfig, positions):
+    """One pre-norm block over the whole sequence, from h and the previous
+    block's MLP output r (None before the first block).  Returns (h, this
+    block's MLP output, (k, v))."""
+    h, x = _add_norm(h, r, lp["ln1"], cfg)
+    a, kv = L.attention_block(lp["attn"], x, cfg, positions=positions,
+                              causal=True)
+    h, x = _add_norm(h, a, lp["ln2"], cfg)
+    return h, L.swiglu(lp["mlp"], x), kv
 
 
 def _hidden(p: Params, cfg: ModelConfig, tokens):
@@ -74,11 +81,14 @@ def _hidden(p: Params, cfg: ModelConfig, tokens):
     _dense_only(cfg)
     h = L.embed(p, tokens)
     positions = torch.arange(h.shape[1], device=h.device)
-    kvs = []
+    kvs, r = [], None
     for i in range(cfg.num_layers):
-        h, kv = _layer_fwd(L.layer_slice(p["layers"], i), h, cfg, positions)
+        h, r, kv = _layer_fwd(L.layer_slice(p["layers"], i), h, r, cfg,
+                              positions)
         kvs.append(kv)
-    return _norm(h, p["ln_f"], cfg), kvs
+    # the fused kernel also writes the last h, which nothing reads: one
+    # (B, S, d) store, against a launch for an unfused add
+    return _add_norm(h, r, p["ln_f"], cfg)[1], kvs
 
 
 def forward(p: Params, cfg: ModelConfig, tokens):
@@ -134,14 +144,15 @@ def decode_step(p: Params, cfg: ModelConfig, cache: dict, token):
     h = L.embed(p, token[:, None])                     # (B,1,d)
     pos = cache["pos"]
     positions = pos[:, None] if pos.dim() else pos.expand(1, 1)
+    r = None
     for i in range(cfg.num_layers):
         lp = L.layer_slice(p["layers"], i)
+        h, x = _add_norm(h, r, lp["ln1"], cfg)
         a, _ = L.attention_block(
-            lp["attn"], _norm(h, lp["ln1"], cfg), cfg, positions=positions,
-            causal=False, kv_cache=(cache["k"][i], cache["v"][i]),
-            cache_pos=pos)
-        h = h + a
-        h = h + L.swiglu(lp["mlp"], _norm(h, lp["ln2"], cfg))
-    h = _norm(h, p["ln_f"], cfg)
+            lp["attn"], x, cfg, positions=positions, causal=False,
+            kv_cache=(cache["k"][i], cache["v"][i]), cache_pos=pos)
+        h, x = _add_norm(h, a, lp["ln2"], cfg)
+        r = L.swiglu(lp["mlp"], x)
+    h = _add_norm(h, r, p["ln_f"], cfg)[1]
     logits = L.unembed(p, h, cfg)[:, 0]
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}

@@ -3,30 +3,33 @@
 Every stage touches the whole address space; stages whose compare
 distance crosses the shard boundary are pairwise shard exchanges.
 
+A sort runs its stages in ``_stages`` order, grouped into launches by
+``_steps`` with tiles of T = min(BLOCK, local length) elements:
+  * one ``ops.bitonic_block`` launch for the whole of phases 2..T, and
+    one for the tail dist = T/2 .. 1 of each later phase (shared memory,
+    each tile loaded and stored once);
+  * one ``ops.bitonic_stage`` launch for each stage with dist >= T.
 D-mode decomposition for L elements on m shards (Ll = L/m local):
   * dist >= Ll: partner shard = mine XOR (dist/Ll); one ``ppermute`` of
     the whole local array per stage; direction and side are fixed per
     (stage, shard), from the shard index;
-  * dist < BLOCK: the stage kernel ``ops.bitonic_stage`` with
-    ``offset = shard * Ll``, so it sees the direction of its global
-    indices (the reference reaches the same with ``_stage_fixed`` when
-    size >= Ll);
-  * BLOCK <= dist < Ll: the plain stage, with the same offset.
-U-mode is the global sort, its stages with dist < BLOCK on the kernel.
-The reference's patterns run the plain stage throughout; the port
-routes the in-block stages through the kernel.
+  * dist < Ll: the launches above with ``offset = shard * Ll``, so they
+    see the direction of their global indices (the reference reaches the
+    same with ``_stage_fixed`` when size >= Ll).
+U-mode is the global sort.  The reference's patterns run the plain stage
+throughout; the port runs no plain stage on the card.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops
 
 from .mesh import DEV, Program, shard_map
 
 PATTERN = "irregular"
-BLOCK = 2048                        # the stage kernel's block (TPU API)
+BLOCK = 2048                        # the TPU API's block: the block kernel's tile
 
 
 def reference(x: np.ndarray) -> np.ndarray:
@@ -52,21 +55,40 @@ def _stages(L: int):
         size *= 2
 
 
-def _stage(x, dist: int, size: int, offset: int = 0):
-    """One stage of a (shard of a) sort: on the kernel where dist < BLOCK
-    and the block cut to x's length holds a pair."""
-    if dist < min(BLOCK, x.shape[0]):
-        return ops.bitonic_stage(x, dist, size, BLOCK, offset=offset)
-    return ref.bitonic_stage_ref(x, dist, size, offset)
+def _steps(L: int, tile: int):
+    """The launches of a sort of L elements with tiles of ``tile``, in
+    order: ("block", size) for one ``bitonic_block`` launch (its stages
+    are ``ref.bitonic_block_stages(size, tile)``), ("stage", size, dist)
+    for one stage with dist >= tile.  Expanded, they are ``_stages(L)``."""
+    if tile >= 2:
+        yield ("block", tile)
+    size = 2 * tile
+    while size <= L:
+        dist = size // 2
+        while dist >= tile:
+            yield ("stage", size, dist)
+            dist //= 2
+        if tile >= 2:
+            yield ("block", size)
+        size *= 2
+
+
+def _run(x, step, tile: int, offset: int = 0):
+    """One launch of ``_steps`` on (a shard of) the array."""
+    if step[0] == "block":
+        return ops.bitonic_block(x, step[1], tile, offset=offset)
+    _, size, dist = step
+    return ops.bitonic_stage(x, dist, size, x.shape[0], offset=offset)
 
 
 def sort(x):
     """Bitonic sort of x (L,), L a power of two."""
-    if not _power_of_two(x.shape[0]):
-        raise ValueError(f"bitonic sort takes a power-of-two length, got "
-                         f"{x.shape[0]}")
-    for size, dist in _stages(x.shape[0]):
-        x = _stage(x, dist, size)
+    L = x.shape[0]
+    if not _power_of_two(L):
+        raise ValueError(f"bitonic sort takes a power-of-two length, got {L}")
+    tile = min(BLOCK, L)
+    for step in _steps(L, tile):
+        x = _run(x, step, tile)
     return x
 
 
@@ -82,8 +104,10 @@ def make_dmode(mesh):
         if not (_power_of_two(m) and _power_of_two(Ll)):
             raise ValueError(f"bitonic D-mode takes power-of-two shards and "
                              f"shard lengths, got {m} x {Ll}")
-        for size, dist in _stages(Ll * m):
-            if dist >= Ll:
+        tile = min(BLOCK, Ll)
+        for step in _steps(Ll * m, tile):
+            if step[0] == "stage" and step[2] >= Ll:
+                _, size, dist = step
                 shard_dist = dist // Ll
                 others = mesh.ppermute(
                     xs, [(i, i ^ shard_dist) for i in range(m)])
@@ -97,7 +121,7 @@ def make_dmode(mesh):
                                else torch.maximum(x, other))
                 xs = new
             else:
-                xs = [_stage(x, dist, size, offset=i * Ll)
+                xs = [_run(x, step, tile, offset=i * Ll)
                       for i, x in enumerate(xs)]
         return xs
     return shard_map(local, mesh, in_specs=(DEV,), out_specs=DEV)

@@ -34,3 +34,17 @@ def shared_params(arch="qwen2-1.5b-smoke", seed=0):
     redraw(tree)
     jparams = jax.tree.map(jnp.asarray, tree)
     return jparams, params_from_jax(tree, device="cpu")
+
+
+def spy_norms(monkeypatch):
+    """Count the calls of the norm wrappers a model reaches: the wrappers
+    in ``repro_torch.kernels.ops`` are patched with counting spies; the
+    returned dict fills as they are called."""
+    from repro_torch.kernels import ops
+    calls = {}
+    for name in ("rmsnorm", "add_rmsnorm", "gated_rmsnorm"):
+        def spy(*args, _name=name, _real=getattr(ops, name), **kwargs):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _real(*args, **kwargs)
+        monkeypatch.setattr(ops, name, spy)
+    return calls

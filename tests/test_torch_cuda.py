@@ -273,12 +273,14 @@ def test_bitonic_kernel_refuses_what_it_does_not_take(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,size,kernel,launches", [
-    ("sc", 512, "stencil2d", 4), ("bs", 16384, "bitonic_stage", 4 * 99)])
-def test_dmode_on_a_four_shard_card_mesh(cuda, name, size, kernel, launches):
+@pytest.mark.parametrize("name,size,launches", [
+    ("sc", 512, {"stencil2d": 4}),
+    ("bs", 16384, {"bitonic_stage": 4 * 3, "bitonic_block": 4 * 4})])
+def test_dmode_on_a_four_shard_card_mesh(cuda, name, size, launches):
     """SC and BS D-mode on [cuda] * 4 against the numpy oracle, their
-    kernels launched once per shard (SC) and once per shard and in-block
-    stage (BS: 99 stages with dist < 2048 in a sort of 16384)."""
+    kernels launched once per shard (SC), and per shard once for each
+    stage with 2048 <= dist < 4096 and once for each run of in-tile
+    stages (BS, shards of 4096: 3 stages, 4 block launches)."""
     from repro_torch.launch import mgmark
     from repro_torch.patterns import WORKLOADS, Mesh, evaluate
     mod = WORKLOADS[name]
@@ -287,5 +289,174 @@ def test_dmode_on_a_four_shard_card_mesh(cuda, name, size, kernel, launches):
     rep = evaluate(name, mod.PATTERN, "dmode", mod.make_dmode(mesh), args,
                    oracle, mesh)
     assert rep.correct and rep.max_err <= 1e-5
-    assert rep.launches[kernel] == launches
+    assert {k: v for k, v in rep.launches.items() if v} == launches
     assert rep.device.startswith("cuda")
+
+
+# ---------------------------------------------------------------------------
+# the fused norms, the bitonic block kernel, and the refusal of grad
+# ---------------------------------------------------------------------------
+
+FUSED_NORM_SHAPES = [(1, 1536), (4, 1536), (995, 1536), (4, 2048),
+                     (1, 4096), (4, 4096), (995, 4096),
+                     (3, 100),            # off the 16-byte grid: scalar path
+                     (2, 8200)]           # wider than the registers hold
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d", FUSED_NORM_SHAPES)
+def test_add_rmsnorm_kernel_matches_plain(cuda, dtype, rows, d):
+    """h bit-equal to the eager x + r; out within f32 2e-5 / bf16 3e-2."""
+    dt = getattr(torch, dtype)
+    x, r = _rand((rows, d), 40, dt, cuda), _rand((rows, d), 41, dt, cuda)
+    w = 1 + 0.1 * _rand((d,), 42, dt, cuda)
+    n = ops.add_rmsnorm.launches
+    h, out = ops.add_rmsnorm(x, r, w)
+    torch.cuda.synchronize()
+    assert ops.add_rmsnorm.launches == n + 1
+    want_h, want = ref.add_rmsnorm_ref(x, r, w)
+    assert h.dtype == out.dtype == dt and torch.equal(h, want_h)
+    _assert_close(out, want, F32 if dtype == "float32" else BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d", FUSED_NORM_SHAPES)
+def test_gated_rmsnorm_kernel_matches_plain(cuda, dtype, rows, d):
+    dt = getattr(torch, dtype)
+    x, z = _rand((rows, d), 43, dt, cuda), _rand((rows, d), 44, dt, cuda)
+    w = 1 + 0.1 * _rand((d,), 45, dt, cuda)
+    n = ops.gated_rmsnorm.launches
+    out = ops.gated_rmsnorm(x, z, w)
+    torch.cuda.synchronize()
+    assert ops.gated_rmsnorm.launches == n + 1
+    assert out.dtype == dt and out.shape == x.shape
+    _assert_close(out, ref.gated_rmsnorm_ref(x, z, w),
+                  F32 if dtype == "float32" else BF16)
+
+
+@pytest.mark.cuda
+def test_fused_kernels_refuse_what_they_do_not_take(cuda):
+    x = _rand((4, 64), 46, torch.float32, cuda)
+    with pytest.raises(ValueError, match="shape"):
+        ops.add_rmsnorm(x, x[:2], x[0])
+    with pytest.raises(TypeError):
+        ops.gated_rmsnorm(x, x.bfloat16(), x[0])
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.add_rmsnorm(x, _rand((64, 4), 47, torch.float32, cuda).T, x[0])
+    y = _rand((4096,), 47, torch.float32, cuda)
+    with pytest.raises(ValueError, match="offset"):
+        ops.bitonic_block(y, 4096, offset=1024)
+    with pytest.raises(TypeError):
+        ops.bitonic_block(y.bfloat16(), 4096)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+@pytest.mark.parametrize("L,size,block,offset", [
+    (131072, 2048, 2048, 0),       # BS's first launch: phases 2..2048
+    (131072, 131072, 2048, 0),     # the last phase's tail
+    (131072, 8192, 2048, 0),
+    (32768, 65536, 2048, 32768),   # a D-mode shard, phase above the shard
+    (32768, 4096, 2048, 65536),
+    (4096, 16, 2048, 0),           # phases 2..16 only
+    (1024, 512, 256, 0),           # a smaller tile
+    (2048, 2, 2, 0)])
+def test_bitonic_block_kernel_matches_plain(cuda, dtype, L, size, block,
+                                            offset):
+    if dtype == "int32":
+        x = torch.randint(-1000, 1000, (L,), device=cuda, dtype=torch.int32,
+                          generator=torch.Generator(cuda).manual_seed(L))
+    else:
+        x = _rand((L,), 48, torch.float32, cuda)
+    n = ops.bitonic_block.launches
+    got = ops.bitonic_block(x, size, block, offset=offset)
+    torch.cuda.synchronize()
+    assert ops.bitonic_block.launches == n + 1
+    torch.testing.assert_close(
+        got, ref.bitonic_block_ref(x, size, min(block, L), offset),
+        rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [2, 2048, 131072])
+def test_bs_sort_runs_no_plain_stage_on_the_card(cuda, L, monkeypatch):
+    """U-mode's sort on the card: equal to torch.sort, in 21 stage and 7
+    block launches at 131072, and the plain stage never called."""
+    from repro_torch.patterns import bs
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain stage ran on the card")
+    monkeypatch.setattr(ref, "bitonic_stage_ref", refuse)
+    x = _rand((L,), 49, torch.float32, cuda)
+    before = ops.launch_counts()
+    got = bs.sort(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.sort(x).values)
+    after = ops.launch_counts()
+    steps = list(bs._steps(L, min(bs.BLOCK, L)))
+    assert after["bitonic_stage"] - before["bitonic_stage"] == \
+        sum(s[0] == "stage" for s in steps) == (21 if L == 131072 else 0)
+    assert after["bitonic_block"] - before["bitonic_block"] == \
+        sum(s[0] == "block" for s in steps) == (7 if L == 131072 else 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-1.5b-smoke", "mamba2-1.3b-smoke"])
+def test_loss_backward_on_the_kernel_path_raises(cuda, arch):
+    """The kernels have no backward: api.loss(...).backward() through them
+    raises instead of cutting the graph; the plain path differentiates,
+    and the kernel path serves under no_grad."""
+    from repro_torch.models import api, get_config
+    cfg = get_config(arch).replace(dtype="float32")
+    params = api.init(0, cfg, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 33), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    leaves = [t for t in _leaves(params) if t.is_floating_point()]
+    for t in leaves:
+        t.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        api.loss(params, cfg, batch).backward()
+    api.loss(params, cfg.replace(use_kernels=False), batch).backward()
+    assert all(t.grad is not None for t in leaves)
+    with torch.no_grad():
+        assert torch.isfinite(api.loss(params, cfg, batch))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,per_layer", [
+    ("qwen2-1.5b-smoke", {"rmsnorm": (0, 1), "add_rmsnorm": (2, 0)}),
+    ("mamba2-1.3b-smoke", {"rmsnorm": (0, 1), "add_rmsnorm": (1, 0),
+                           "gated_rmsnorm": (1, 0)})])
+def test_decode_step_fuses_the_prologues(cuda, arch, per_layer):
+    """One f32 decode step on the kernel path launches the fused norms
+    (per_layer: (launches per layer, launches per step)) and nothing else
+    of ops, and its logits match the plain path's within 1e-4."""
+    from repro_torch.models import api, get_config
+    cfg = get_config(arch).replace(dtype="float32")
+    params = api.init(0, cfg, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 20), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(2))
+    outs = []
+    for c in (cfg, cfg.replace(use_kernels=False)):
+        cache = api.init_cache(c, 2, 32, device=cuda)
+        _, cache = api.prefill(params, c, cache, {"tokens": toks})
+        before = ops.launch_counts()
+        logits, _ = api.decode_step(params, c, cache, toks[:, -1])
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        outs.append((logits, {k: after[k] - before[k] for k in after
+                              if after[k] != before[k]}))
+    (got, launched), (want, plain) = outs
+    assert plain == {}
+    assert launched == {k: a * cfg.num_layers + b
+                        for k, (a, b) in per_layer.items()}
+    _assert_close(got, want, dict(atol=1e-4, rtol=1e-4))

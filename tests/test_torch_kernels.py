@@ -127,6 +127,81 @@ def test_rmsnorm_wrapper_runs_plain_version_on_cpu():
 
 
 # ---------------------------------------------------------------------------
+# the fused norms: the models' prologue (residual add, Mamba2's gate) and
+# the norm, against the JAX models' ops
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [("float32", F32), ("bfloat16", BF16)])
+@pytest.mark.parametrize("rows,d", [(4, 1536), (7, 2048), (1, 128)])
+def test_add_rmsnorm_ref_matches_jax_residual_and_norm(dtype, tol, rows, d):
+    """JAX: h = h + a; rms_norm(h) (repro/models/transformer.py)."""
+    x, r = _rand((rows, d), 50), _rand((rows, d), 51)
+    w = 1 + 0.1 * _rand((d,), 52)
+    jh = _j(x, dtype=getattr(jnp, dtype))[0] + _j(r, dtype=getattr(jnp, dtype))[0]
+    want = jlayers.rms_norm(jh, _j(w, dtype=getattr(jnp, dtype))[0])
+    h, out = ref.add_rmsnorm_ref(*_t(x, r, w, dtype=getattr(torch, dtype)))
+    assert h.dtype == out.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(_np(h), _np(jh))
+    np.testing.assert_allclose(_np(out), _np(want), **tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", F32), ("bfloat16", BF16)])
+@pytest.mark.parametrize("rows,d", [(4, 4096), (3, 256)])
+def test_gated_rmsnorm_ref_matches_jax_gated_norm(dtype, tol, rows, d):
+    """JAX: rms_norm(y * silu(z), norm_w) (repro/models/ssm.py)."""
+    import jax
+    y, z = _rand((rows, d), 53), 2 * _rand((rows, d), 54)
+    w = 1 + 0.1 * _rand((d,), 55)
+    jy, jz, jw = _j(y, z, w, dtype=getattr(jnp, dtype))
+    want = jlayers.rms_norm(jy * jax.nn.silu(jz), jw)
+    got = ref.gated_rmsnorm_ref(*_t(y, z, w, dtype=getattr(torch, dtype)))
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+def test_fused_norm_wrappers_run_plain_versions_on_cpu():
+    x, r, w = _t(_rand((4, 1536), 56), _rand((4, 1536), 57),
+                 _rand((1536,), 58))
+    before = ops.launch_counts()
+    h, out = ops.add_rmsnorm(x, r, w)
+    assert torch.equal(h, x + r) and torch.equal(out, ref.rmsnorm_ref(x + r, w))
+    assert torch.equal(ops.gated_rmsnorm(x, r, w),
+                       ref.gated_rmsnorm_ref(x, r, w))
+    assert ops.launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# grad: the kernels have no backward, so the wrappers refuse it on the card
+# ---------------------------------------------------------------------------
+
+def test_check_no_grad_raises_for_an_input_that_requires_grad():
+    w = torch.ones(8, requires_grad=True)
+    with pytest.raises(RuntimeError, match="rmsnorm: the CUDA kernel has no "
+                                           "backward.*training slice"):
+        ops.check_no_grad("rmsnorm", torch.ones(2, 8), w)
+
+
+def test_check_no_grad_passes_without_grad():
+    w = torch.ones(8, requires_grad=True)
+    with torch.no_grad():
+        ops.check_no_grad("rmsnorm", torch.ones(2, 8), w)
+    ops.check_no_grad("rmsnorm", torch.ones(2, 8), torch.ones(8))
+    with torch.inference_mode():
+        ops.check_no_grad("flash_attention", w)
+
+
+def test_cpu_wrappers_still_differentiate():
+    """On the CPU the wrappers run the plain versions, which autograd
+    differentiates as usual: no refusal there."""
+    x, r = _t(_rand((3, 64), 59), _rand((3, 64), 60))
+    w = torch.ones(64, requires_grad=True)
+    h, out = ops.add_rmsnorm(x, r, w)
+    (out.sum() + ops.gated_rmsnorm(x, r, w).sum()
+     + ops.rmsnorm(x, w).sum()).backward()
+    assert w.grad is not None and torch.isfinite(w.grad).all()
+
+
+# ---------------------------------------------------------------------------
 # launchers and build: what runs without a card
 # ---------------------------------------------------------------------------
 
@@ -138,6 +213,10 @@ def test_launchers_refuse_cpu_tensors():
     q, k, v = _t(*_qkv(1, 8, 8, 4, 2, 16))
     with pytest.raises(ValueError, match="CUDA"):
         fa_kernel.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        rms_kernel.add_rmsnorm(x, x, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        rms_kernel.gated_rmsnorm(x, x, w)
 
 
 def test_build_names_libraries_by_source_hash():

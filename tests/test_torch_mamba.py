@@ -22,7 +22,7 @@ from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models import api, get_config, list_archs  # noqa: E402
 from repro_torch.serve import Engine, Request  # noqa: E402
 
-from _torch_parity import shared_params  # noqa: E402
+from _torch_parity import shared_params, spy_norms  # noqa: E402
 
 ARCH = "mamba2-1.3b-smoke"
 ATOL, RTOL = 1e-4, 1e-4
@@ -264,3 +264,21 @@ def test_launcher_serves_mamba_on_cpu(capsys):
     assert launch_serve.main(["--arch", ARCH, "--device", "cpu",
                               "--requests", "3", "--max-new", "4"]) == 0
     assert "served 3 requests, 12 tokens" in capsys.readouterr().out
+
+
+def test_decode_step_fuses_the_residual_add_and_the_gate(monkeypatch):
+    """On the kernel path a decode step reaches one plain norm, one fused
+    add+norm a layer (the last into ln_f) and one gated norm a layer: the
+    residual add, silu(z) and y * silu(z) are no launches of their own."""
+    cfg = get_config(ARCH)
+    params = api.init(0, cfg, device="cpu")
+    toks = torch.from_numpy(_tokens(2, 5, seed=7)).long()
+    n = cfg.num_layers
+    for c, want in ((cfg, {"rmsnorm": 1, "add_rmsnorm": n,
+                           "gated_rmsnorm": n}),
+                    (cfg.replace(use_kernels=False), {})):
+        cache = api.init_cache(c, 2, 8, device="cpu")
+        logits, cache = api.prefill(params, c, cache, {"tokens": toks})
+        calls = spy_norms(monkeypatch)
+        api.decode_step(params, c, cache, logits.argmax(-1))
+        assert calls == want

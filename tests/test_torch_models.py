@@ -12,7 +12,7 @@ from repro.models import api as japi  # noqa: E402
 from repro.models import get_config as jget_config  # noqa: E402
 from repro_torch.models import api, get_config, list_archs  # noqa: E402
 
-from _torch_parity import shared_params  # noqa: E402
+from _torch_parity import shared_params, spy_norms  # noqa: E402
 
 ARCH = "qwen2-1.5b-smoke"
 ATOL, RTOL = 1e-4, 1e-4          # f32 model, sums taken in another order
@@ -160,3 +160,20 @@ def test_cuda_default_raises_without_gpu():
         api.init(0, cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         api.init_cache(cfg, 1, 8)
+
+
+def test_decode_step_fuses_each_residual_add_into_a_norm(monkeypatch):
+    """On the kernel path a decode step reaches one plain norm (the first
+    block's) and 2 fused add+norms a layer (the last into ln_f): the 2L
+    residual adds are no launches of their own.  The plain path reaches
+    no wrapper."""
+    cfg = get_config(ARCH)
+    params = api.init(0, cfg, device="cpu")
+    toks = torch.from_numpy(_tokens(2, 5, seed=7)).long()
+    for c, want in ((cfg, {"rmsnorm": 1, "add_rmsnorm": 2 * cfg.num_layers}),
+                    (cfg.replace(use_kernels=False), {})):
+        cache = api.init_cache(c, 2, 8, device="cpu")
+        logits, cache = api.prefill(params, c, cache, {"tokens": toks})
+        calls = spy_norms(monkeypatch)
+        api.decode_step(params, c, cache, logits.argmax(-1))
+        assert calls == want

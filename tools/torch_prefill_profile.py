@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Device time of one full-width prefill of the PyTorch port, by kernel.
+"""Device time of a full-width prefill and of decode steps of the
+PyTorch port, by kernel.
 
 Builds a served model at full width (random weights from seed 0), runs
 one warm prefill of ``chip_smoke.py``'s 995-token probe (prompt from
@@ -9,6 +10,13 @@ every CUDA kernel's self time), the time and launches of the attention
 or SSD kernel of the model's path, the largest other kernels, and the
 CUDA-event time around the prefill (host gaps included).
 
+Then it fills the 4 slots of a ``repro_torch.serve.Engine`` (max_seq
+2048, 128-token prompts) and takes ``DECODE_STEPS`` decode-only
+engine steps twice: unprofiled, for the step time (host clock around
+steps ending in a synchronize), and under torch.profiler, for the
+device busy ms, the kernel launches and the port's kernel-wrapper
+launches per step.
+
 ``--src`` names the ``src`` directory of the tree to import
 ``repro_torch`` from, so the same window can be taken of two trees
 (for example this checkout and its parent unpacked with ``git
@@ -16,8 +24,8 @@ archive``) in one run on one card:
 
     python tools/torch_prefill_profile.py [--src DIR] [--arch qwen2-1.5b]
 
-Needs a CUDA device; prints one JSON object per model, the last line
-holding all of them.
+Needs a CUDA device; prints one JSON object per model and window, the
+last line holding all of them.
 """
 from __future__ import annotations
 
@@ -30,6 +38,8 @@ PROBE_LEN = 995
 # the kernel of each model's path whose time the redesign moves, by a
 # substring of its device symbol
 PATH_KERNEL = {"qwen2-1.5b": "flash_fwd", "mamba2-1.3b": "ssd_chunk_kernel"}
+# decode-only engine steps in each decode window
+DECODE_STEPS = 8
 
 
 def profile_prefill(arch: str, reps: int) -> dict:
@@ -83,6 +93,63 @@ def profile_prefill(arch: str, reps: int) -> dict:
     return out
 
 
+def profile_decode(arch: str) -> dict:
+    import time
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.models import api, get_config
+    from repro_torch.serve import Engine, Request
+    steps = DECODE_STEPS
+    cfg = get_config(arch)
+    params = api.init(0, cfg, device="cuda")
+    eng = Engine(cfg, params, slots=4, max_seq=2048, device="cuda")
+    rng = np.random.default_rng(0)
+    for uid in range(eng.slots):
+        eng.submit(Request(uid=uid, max_new_tokens=2 * steps + 8,
+                           prompt=rng.integers(0, cfg.vocab_size, 128)))
+    eng.step()                                  # admits every slot
+    for _ in range(3):                          # warm decode steps
+        eng.step()
+    torch.cuda.synchronize()
+    step_ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    before = ops.launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    after = ops.launch_counts()
+    full = len(eng.active) == eng.slots         # every step was decode-only
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    out = {"arch": arch, "src": str(pathlib.Path(sys.path[0]).resolve()),
+           "decode_steps": steps, "all_slots_active": full,
+           "step_ms": step_ms, "step_ms_median": sorted(step_ms)[steps // 2],
+           "device_busy_ms_per_step":
+               sum(e.self_device_time_total for e in kernels) / 1e3 / steps,
+           "kernel_launches_per_step":
+               sum(e.count for e in kernels) / steps,
+           "wrapper_launches_per_step": {
+               k: (after[k] - before[k]) / steps for k in after
+               if after[k] != before[k]},
+           "top_kernels_ms_per_step": {
+               e.key[:60]: e.self_device_time_total / 1e3 / steps
+               for e in top},
+           "device": torch.cuda.get_device_name(0)}
+    del params, eng
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=str(
@@ -95,11 +162,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("torch_prefill_profile: no CUDA device", file=sys.stderr)
         return 2
-    rows = []
+    rows, decode = [], []
     for arch in args.arch or sorted(PATH_KERNEL, reverse=True):
         rows.append(profile_prefill(arch, args.reps))
         print(json.dumps(rows[-1]), flush=True)
-    print(json.dumps({"prefill_profiles": rows}))
+        decode.append(profile_decode(arch))
+        print(json.dumps(decode[-1]), flush=True)
+    print(json.dumps({"prefill_profiles": rows, "decode_profiles": decode}))
     return 0
 
 
