@@ -10,38 +10,54 @@ Phases, each of which raises (and so exits non-zero) on failure:
    count the tensor-core instructions (HGMMA, HMMA) in each library's
    SASS with cuobjdump; flash_attention must hold HGMMA and ssd HMMA;
 2. kernels — hold each kernel against its plain PyTorch version, bf16 and
-   f32, at the serving and MGMark paths' shapes, and time the kernel, the
-   plain version and one library call computing the same function (for
-   attention, ``scaled_dot_product_attention`` pinned to each backend the
-   build offers, the fastest recorded; for the fused norms, the add or
-   the gate and ``F.rms_norm`` as separate calls); the fused norms' h
-   must equal the eager add bit for bit, and BS's whole sort on the
+   f32, at the serving, training and MGMark paths' shapes, and time the
+   kernel, the plain version and one library call computing the same
+   function (for attention, ``scaled_dot_product_attention`` pinned to
+   each backend the build offers, the fastest recorded, and for its
+   backward that call's forward + backward less its forward; for the
+   fused norms, the add or the gate and ``F.rms_norm`` as separate calls,
+   and for the norms' backward autograd of them less their forward); the
+   forward's log-sum-exp is held to its plain version; the fused norms'
+   h must equal the eager add bit for bit, and BS's whole sort on the
    kernels must equal ``torch.sort`` (timed beside it);
 3. serve  — qwen2-1.5b at full width (bf16, 28 layers, random weights
-   from a seed): ``api.loss(...).backward()`` on the kernel path must
-   raise (the kernels have no backward), kernel-path vs plain-path
-   prefill logits on a 995-token probe, then 16 requests through
-   ``repro_torch.serve.Engine`` with the kernels' launch counters read
-   around that run;
+   from a seed): ``api.loss(...).backward()`` on the kernel path must run
+   the backward kernels and give every param a finite gradient,
+   kernel-path vs plain-path prefill logits on a 995-token probe, then
+   16 requests through ``repro_torch.serve.Engine`` with the kernels'
+   launch counters read around that run (no backward launched and no
+   log-sum-exp stored while serving);
 4. f32    — the full-width model in f32: greedy tokens of the kernel path
    and the plain path must be identical;
 5. serve  — phase 3 for mamba2-1.3b at full width (bf16, 48 layers): the
-   SSD kernel must run once per layer of every prefill;
+   SSD kernel must run once per layer of every prefill, and
+   ``api.loss(...).backward()`` on the kernel path must raise (the SSD
+   and gated-norm kernels have no backward yet);
 6. f32    — phase 4 for mamba2-1.3b;
 7. mgmark — the seven MGMark workloads in U-mode and D-mode on a 4-shard
    mesh on the card at ``default_size(4)`` (``repro_torch.launch.mgmark``):
    each correct against its oracle, D-mode collective bytes equal to the
    count from the shapes, the stencil and bitonic kernels launched as
-   many times as the SC and BS programs call them, device ms per run.
+   many times as the SC and BS programs call them, device ms per run;
+8. train  — qwen2-1.5b at full width: (a) f32 gradients of ``api.loss``
+   (batch 1 x 1024, all 28 layers) on the kernel path against the plain
+   path, each param's within TRAIN_F32_TOL of its max |g|; (b) the bf16
+   kernel path's gradients held to the f32 plain path's, no farther than
+   the bf16 plain path's plus TRAIN_BF16_MARGIN; (c) 20 AdamW steps at
+   bf16, batch 2 x 1024, on ``SyntheticLM`` through
+   ``repro_torch.launch.train.run``: finite, falling loss, the kernels
+   launched as many times as the layer count says, step ms, tokens/s,
+   device busy and idle share (torch.profiler) and peak memory.
 
 Before the last line it prints ``{"kernels": [...]}`` and the card's name
 and power limit from nvidia-smi; the last line is ``{"ok": true,
-"device": {...}}``.  Every case, the serving numbers and the MGMark rows
-also go to ``build/chip_smoke.json``.  Without a CUDA device, or outside
-a checkout, it exits non-zero and prints no result.
+"device": {...}}``.  Every case, the serving and training numbers and
+the MGMark rows also go to ``build/chip_smoke.json``.  Without a CUDA
+device, or outside a checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import pathlib
@@ -63,7 +79,17 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12,
 TENSOR_CORE_SASS = {"flash_attention": "HGMMA", "ssd": "HMMA"}
 SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
 TOL = {"float32": (2e-5, 1e-4), "bfloat16": (3e-2, 3e-2)}   # atol, rtol
+# the backward kernels: f32 sums of up to G * S products in another order;
+# bf16 one rounding of each output, as the plain version.  The forward's
+# log-sum-exp: f32 in both kernels.
+BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 3e-2)}
+LSE_TOL = (1e-4, 1e-4)
 FLASH_SEQS = (1, 77, 128, 995, 2047)
+# flash backward, (B, S, H, K, hd): qwen2-1.5b's training shape (the main
+# one), a ragged prompt, a small head width
+FLASH_BWD_CASES = ((2, 1024, 12, 2, 128), (1, 995, 12, 2, 128),
+                   (2, 256, 4, 2, 16))
+RMS_BWD_SHAPE = (2048, 1536)    # qwen2-1.5b's training batch of 2 x 1024
 RMS_ROWS = (1, 4, 995, 2047)
 RMS_ROWS_MAMBA = (4, 995)       # at mamba2-1.3b's d_inner, 4096
 # the fused norms, (d, rows): the residual add in front of qwen2-1.5b's
@@ -129,6 +155,30 @@ F32_PROBE_ATOL = 1e-3           # f32 logits: f32 sums in another order
 # farther from it than the plain path is, and in f32 the kernel path
 # must agree with the plain path within F32_PROBE_ATOL.
 F32_ANCHORED_PROBE = ("mamba2-1.3b",)
+# phase 8.  (a) f32 gradients, kernel path vs plain path, per param:
+# max |diff| <= TRAIN_F32_TOL * max |g| (f32 sums in another order, 28
+# layers deep).  (b) bf16 gradients carry bf16's own rounding through 28
+# layers of random weights, so they are held, as mamba's probe is, to the
+# f32 plain gradients: per param the kernel path's distance (relative to
+# the param's max |g|) may exceed the bf16 plain path's by at most
+# TRAIN_BF16_MARGIN.  (c) AdamW steps: lr 3e-4 (OptConfig's default), the
+# launcher's warmup (steps // 10) and cosine schedule.
+TRAIN_ARCH = "qwen2-1.5b"
+TRAIN_GRAD_BATCH, TRAIN_GRAD_SEQ = 1, 1024
+TRAIN_F32_TOL = 1e-4
+TRAIN_BF16_MARGIN = 0.05
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 20, 2, 1024, 3e-4
+# device time of a training step by kernel group: (group, substrings of
+# the kernels' names), first match wins
+TRAIN_KERNEL_GROUPS = (
+    ("flash_attention_bwd", ("flash_bwd",)),
+    ("flash_attention", ("flash_fwd",)),
+    ("rmsnorm fwd+bwd", ("rmsnorm",)),
+    ("gemm", ("nvjet", "gemm", "xmma", "cutlass")),
+    ("softmax/loss", ("softmax", "nll_loss", "logsumexp")),
+    ("reduce", ("reduce_kernel",)),
+    ("elementwise", ("elementwise_kernel",)),
+    ("copy/fill", ("Memcpy", "Memset", "copy", "fill")))
 
 
 def check(ok: bool, msg: str) -> None:
@@ -228,17 +278,23 @@ def phase_kernels():
     from repro_torch.kernels import bitonic, ops, stencil
     cases = {"flash_attention": [], "rmsnorm": [], "add_rmsnorm": [],
              "gated_rmsnorm": [], "ssd_chunk_kernel": [], "stencil2d": [],
-             "bitonic_stage": [], "bitonic_block": []}
+             "bitonic_stage": [], "bitonic_block": [],
+             "flash_attention_bwd": [], "rmsnorm_bwd": [],
+             "add_rmsnorm_bwd": []}
 
     def record(name, shape, dtype, got, want, fn, plain_fn, lib_fn, b,
                tol=None, **extra):
         """got/want: a tensor or a tuple of tensors; lib_fn None where no
         one PyTorch call computes the function, or {label: fn} of which
-        the fastest that runs is recorded."""
+        the fastest that runs is recorded, or {label: ms or None} of
+        times taken already."""
         ms, plain_ms = time_ms(fn), time_ms(plain_fn)
         if isinstance(lib_fn, dict):
             extra["library_ms_by_backend"] = by = {}
             for label, f in lib_fn.items():
+                if f is None or isinstance(f, float):
+                    by[label] = f
+                    continue
                 try:
                     by[label] = time_ms(f)
                 except RuntimeError:        # the build offers no such kernel
@@ -300,6 +356,107 @@ def phase_kernels():
                    lambda: ref.flash_attention_ref(q, k, v, True),
                    {name: sdpa(qt, kt, vt, name) for name in SDPA_BACKENDS},
                    bound(nbytes, n_ops, dtype))
+
+    # The flash backward at qwen2-1.5b's heads, on the kernel forward's o
+    # and log-sum-exp (held to the plain LSE first).  Bound: 2.5x the
+    # forward's causal operations (recomputed S, dP, dV, dQ, dK against
+    # S and P V) at the dtype's peak; bytes q, k, v, o, dO and lse read
+    # once, dq, dk, dv written once.  Library: SDPA's forward + backward
+    # less its forward, per backend, the fastest kept.
+    def sdpa_times(q, k, v, do):
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def fwd(backend):
+            with sdpa_kernel(getattr(SDPBackend, backend)):
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+        times = {}
+        for backend in SDPA_BACKENDS:
+            try:
+                both = time_ms(lambda: torch.autograd.grad(
+                    fwd(backend), (qt, kt, vt), dot))
+                times[backend] = both - time_ms(lambda: fwd(backend))
+            except RuntimeError:            # the build offers no such kernel
+                times[backend] = None
+        return times
+
+    for B, S, H, K, hd in FLASH_BWD_CASES:
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            q = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dt)
+            k = torch.randn(B, S, K, hd, generator=gen, device="cuda").to(dt)
+            v = torch.randn(B, S, K, hd, generator=gen, device="cuda").to(dt)
+            do = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dt)
+            o, lse = fa.flash_attention(q, k, v, causal=True, with_lse=True)
+            lse_err = (lse - ref.flash_attention_lse_ref(q, k, v)).abs()
+            lse_want = ref.flash_attention_lse_ref(q, k, v).abs()
+            check(bool((lse_err <= LSE_TOL[0] + LSE_TOL[1] * lse_want).all()),
+                  f"flash_attention B={B},S={S},hd={hd} {dtype}: its "
+                  f"log-sum-exp disagrees with the plain version "
+                  f"(max abs err {lse_err.max().item():.3e})")
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+            want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do)
+            torch.cuda.synchronize()
+            nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+                + 4 * lse.numel()
+            n_ops = 2.5 * 4 * B * H * hd * S * (S + 1) / 2
+            record("flash_attention_bwd", f"B={B},S={S},hd={hd}", dtype,
+                   got, want,
+                   lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
+                   lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do),
+                   sdpa_times(q, k, v, do), bound(nbytes, n_ops, dtype),
+                   tol=BWD_TOL[dtype],
+                   lse_max_abs_err=lse_err.max().item(),
+                   library_calls="SDPA forward + backward less forward")
+
+    # the norms' backward at qwen2-1.5b's training rows, plain and
+    # residual (dh in).  Bytes: x (h), dy (and dh) read once, w read once,
+    # dx and dw written once.  Library: autograd of F.rms_norm (after the
+    # eager add for the residual form), less its forward.
+    rows, d = RMS_BWD_SHAPE
+    for kind in ("rmsnorm_bwd", "add_rmsnorm_bwd"):
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            x = torch.randn(rows, d, generator=gen, device="cuda").to(dt)
+            w = (1 + 0.1 * torch.randn(d, generator=gen,
+                                       device="cuda")).to(dt)
+            dy = torch.randn(rows, d, generator=gen, device="cuda").to(dt)
+            dh = (torch.randn(rows, d, generator=gen, device="cuda").to(dt)
+                  if kind == "add_rmsnorm_bwd" else None)
+            got = rms.rmsnorm_bwd(x, w, dy, 1e-6, dh=dh)
+            want = (ref.rmsnorm_bwd_ref(x, w, dy, 1e-6) if dh is None else
+                    ref.add_rmsnorm_bwd_ref(x, w, dy, dh, 1e-6))
+            torch.cuda.synchronize()
+            xg, rg, wg = (t.detach().requires_grad_() for t in (x, x, w))
+            if dh is None:
+                def lib_fwd():
+                    return F.rms_norm(xg, (d,), wg, 1e-6)
+
+                def lib_both():
+                    return torch.autograd.grad(lib_fwd(), (xg, wg), dy)
+                plain = (lambda: ref.rmsnorm_bwd_ref(x, w, dy, 1e-6))
+            else:
+                def lib_fwd():
+                    h = xg + rg
+                    return h, F.rms_norm(h, (d,), wg, 1e-6)
+
+                def lib_both():
+                    return torch.autograd.grad(lib_fwd(), (xg, rg, wg),
+                                               (dh, dy))
+                plain = (lambda: ref.add_rmsnorm_bwd_ref(x, w, dy, dh, 1e-6))
+            lib_ms = time_ms(lib_both) - time_ms(lib_fwd)
+            n = x.numel()
+            nbytes = ((3 + (dh is not None)) * n + 2 * d) * x.element_size()
+            record(kind, f"rows={rows},d={d}", dtype, got, want,
+                   lambda: rms.rmsnorm_bwd(x, w, dy, 1e-6, dh=dh), plain,
+                   {"autograd": lib_ms}, bound(nbytes, 12 * n, dtype),
+                   tol=BWD_TOL[dtype],
+                   library_calls=("F.rms_norm" if dh is None else
+                                  "x + r; F.rms_norm")
+                   + ": forward + backward less forward")
 
     # qwen2-1.5b's d_model; mamba2-1.3b's gated norm over d_inner
     for d, rows_list in ((1536, RMS_ROWS), (4096, RMS_ROWS_MAMBA)):
@@ -535,7 +692,11 @@ def phase_serve(arch: str, phase: int):
 
     # the backward check draws from its own generator, so the probe and
     # the traffic below stay the ones earlier runs measured
-    refuse_backward(api, cfg, params, np.random.default_rng(1))
+    if arch in BACKWARD_ARCHS:
+        grad_row = backward_check(api, cfg, params, np.random.default_rng(1))
+    else:
+        refuse_backward(api, cfg, params, np.random.default_rng(1))
+        grad_row = None
     rng = np.random.default_rng(0)
     probe = torch.as_tensor(rng.integers(0, cfg.vocab_size, PROBE_LEN),
                             device="cuda")[None]
@@ -565,14 +726,15 @@ def phase_serve(arch: str, phase: int):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     admit_ms, decode_ms, done = [], [], []
-    t0 = time.perf_counter()
-    while eng.queue or eng.active:
-        prefills, s0 = eng.prefills, time.perf_counter()
-        done += eng.step()
-        ms = (time.perf_counter() - s0) * 1e3
-        (admit_ms if eng.prefills != prefills else decode_ms).append(ms)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with lse_requests() as lse_flags:
+        t0 = time.perf_counter()
+        while eng.queue or eng.active:
+            prefills, s0 = eng.prefills, time.perf_counter()
+            done += eng.step()
+            ms = (time.perf_counter() - s0) * 1e3
+            (admit_ms if eng.prefills != prefills else decode_ms).append(ms)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = ops.launch_counts()
     peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     toks = sum(len(r.output) for r in done)
@@ -594,11 +756,17 @@ def phase_serve(arch: str, phase: int):
     for name in PATH_KERNELS[arch]:
         check(launches[name] > 0,
               f"kernel {name} was never launched on the {arch} path")
+    for name in BACKWARD_KERNELS:
+        check(launches[name] == 0, f"serving {arch} launched {name}")
+    check(not any(lse_flags), f"serving {arch} stored a log-sum-exp "
+                              f"({sum(lse_flags)} of {len(lse_flags)} flash "
+                              f"launches)")
     if cfg.family == "ssm":
         check(launches["ssd_chunk_kernel"] == cfg.num_layers * prefills,
               f"ssd_chunk_kernel launched {launches['ssd_chunk_kernel']} "
               f"times, not once per layer of {prefills} prefills")
-    serve = {"arch": arch, "probe": probe_row, "requests": len(done),
+    serve = {"arch": arch, "probe": probe_row, "backward": grad_row,
+             "requests": len(done),
              "new_tokens": toks,
              "wall_s": wall, "tokens_per_s": toks / wall, "peak_gib": peak,
              "prompt_tokens": int(lens.sum()), "prefills": prefills,
@@ -615,13 +783,12 @@ def phase_serve(arch: str, phase: int):
     return serve
 
 
-def refuse_backward(api, cfg, params, rng):
-    """The kernels have no backward: with the params requiring grad,
-    ``api.loss(...).backward()`` on the kernel path must raise, never
-    run with a cut graph."""
-    import torch
-    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 65)),
-                           device="cuda")
+# the archs whose kernels all have a backward, and those kernels
+BACKWARD_ARCHS = ("qwen2-1.5b",)
+BACKWARD_KERNELS = ("flash_attention_bwd", "rmsnorm_bwd", "add_rmsnorm_bwd")
+
+
+def _float_leaves(params):
     leaves = []
     stack = [params]
     while stack:
@@ -630,6 +797,83 @@ def refuse_backward(api, cfg, params, rng):
             stack.extend(t.values())
         elif t.is_floating_point():
             leaves.append(t)
+    return leaves
+
+
+@contextlib.contextmanager
+def lse_requests():
+    """Yields a list that records, for every forward flash launch made
+    inside the block, whether it asked for the log-sum-exp."""
+    from repro_torch.kernels import flash_attention as fa
+    real, flags = fa.flash_attention, []
+
+    def spy(*args, **kwargs):
+        flags.append(bool(kwargs.get("with_lse", False)))
+        return real(*args, **kwargs)
+    fa.flash_attention = spy
+    try:
+        yield flags
+    finally:
+        fa.flash_attention = real
+
+
+def backward_check(api, cfg, params, rng):
+    """With the params requiring grad, ``api.loss(...).backward()`` on
+    the kernel path runs the backward kernels (flash once a layer, the
+    residual norm twice a layer, the plain norm once) and gives every
+    param a finite gradient.  The distance of each param's gradient to
+    the bf16 plain path's is printed; phase 8 holds gradients to a
+    reference."""
+    import torch
+    from repro_torch.kernels import ops
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 65)),
+                           device="cuda")
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    leaves = _float_leaves(params)
+    grads = {}
+    try:
+        for t in leaves:
+            t.requires_grad_(True)
+        for label, c in (("kernels", cfg),
+                         ("plain", cfg.replace(use_kernels=False))):
+            ops.reset_launches()
+            loss = api.loss(params, c, batch)
+            loss.backward()
+            torch.cuda.synchronize()
+            grads[label] = [t.grad for t in leaves]
+            if label == "kernels":
+                launches = ops.launch_counts()
+            for t in leaves:
+                t.grad = None
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+            t.grad = None
+    L = cfg.num_layers
+    want = {"flash_attention_bwd": L, "rmsnorm_bwd": 1,
+            "add_rmsnorm_bwd": 2 * L}
+    got = {k: launches[k] for k in want}
+    check(got == want, f"the backward launched {got}, expected {want}")
+    check(all(g is not None and bool(torch.isfinite(g).all())
+              for g in grads["kernels"]),
+          "a param got no gradient, or a non-finite one, on the kernel path")
+    rel = max(((a.float() - b.float()).abs().max()
+               / b.float().abs().max().clamp(min=1e-30)).item()
+              for a, b in zip(grads["kernels"], grads["plain"]))
+    print(f"  loss().backward() on the kernel path: launches {got}, every "
+          f"gradient finite; largest per-param distance to the bf16 plain "
+          f"path {rel:.4e} of that param's max |g|")
+    return {"launches": got, "max_rel_to_plain_bf16": rel}
+
+
+def refuse_backward(api, cfg, params, rng):
+    """The SSD and gated-norm kernels have no backward: with the params
+    requiring grad, ``api.loss(...).backward()`` on the kernel path must
+    raise, never run with a cut graph."""
+    import torch
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 65)),
+                           device="cuda")
+    leaves = _float_leaves(params)
     for t in leaves:
         t.requires_grad_(True)
     try:
@@ -792,6 +1036,214 @@ def phase_mgmark():
     return rows, path
 
 
+def _grads(api, optim, params, cfg, batch):
+    """(loss, gradients of every param in optim.leaves order)."""
+    import torch
+    flat = optim.leaves(params)
+    for t in flat:
+        t.requires_grad_(True)
+    try:
+        loss = api.loss(params, cfg, batch)
+        return loss.item(), torch.autograd.grad(loss, flat)
+    finally:
+        for t in flat:
+            t.requires_grad_(False)
+
+
+def _rel(a, b):
+    """max |a - b| relative to max |b|, in f32."""
+    b = b.float()
+    return ((a.float() - b).abs().max() / b.abs().max().clamp(min=1e-30)
+            ).item()
+
+
+def phase_train():
+    """Phase 8.  Returns (the phase's numbers, launches of the 20-step run
+    by kernel)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import api, get_config
+    from repro_torch.sharding import umode
+    from repro_torch.train import optim
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    print(f"== phase 8: train {TRAIN_ARCH} at full width", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    L = cfg.num_layers
+    per_step = {"flash_attention": L, "flash_attention_bwd": L,
+                "rmsnorm": 1, "rmsnorm_bwd": 1, "add_rmsnorm": 2 * L,
+                "add_rmsnorm_bwd": 2 * L}
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_GRAD_SEQ,
+                                  global_batch=TRAIN_GRAD_BATCH, seed=1))
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in data.global_batch(0).items()}
+    out = {"arch": TRAIN_ARCH, "grad_batch": [TRAIN_GRAD_BATCH,
+                                              TRAIN_GRAD_SEQ]}
+
+    # (a) f32 gradients, kernel path vs plain path, full depth
+    c32 = cfg.replace(dtype="float32")
+    p32 = api.init(0, c32, device="cuda")
+    ops.reset_launches()
+    loss_k, g_k = _grads(api, optim, p32, c32, batch)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    check(launches == per_step, f"f32 kernel-path gradient launched "
+                                f"{launches}, expected {per_step}")
+    loss_p, g_p = _grads(api, optim, p32, c32.replace(use_kernels=False),
+                         batch)
+    rel32 = [_rel(a, b) for a, b in zip(g_k, g_p)]
+    del g_k
+    names = [".".join(p) for p in _paths(p32)]
+    worst = int(np.argmax(rel32))
+    print(f"  (a) f32 gradients (batch {TRAIN_GRAD_BATCH} x {TRAIN_GRAD_SEQ}, "
+          f"{L} layers): loss kernels {loss_k:.6f} plain {loss_p:.6f}; "
+          f"largest per-param distance {rel32[worst]:.3e} ({names[worst]}) "
+          f"of max |g| (tol {TRAIN_F32_TOL})")
+    check(all(np.isfinite(rel32)) and max(rel32) <= TRAIN_F32_TOL,
+          f"f32 kernel-path gradient of {names[worst]} is {rel32[worst]:.3e} "
+          f"of its max |g| from the plain path")
+    out["f32"] = {"loss_kernels": loss_k, "loss_plain": loss_p,
+                  "max_rel": rel32[worst], "worst": names[worst],
+                  "rel_by_param": dict(zip(names, rel32))}
+
+    # (b) bf16 gradients held to the f32 plain ones
+    pbf = optim.tree_map(lambda t: t.to(torch.bfloat16), p32)
+    del p32
+    gc.collect()
+    loss_bk, g_bk = _grads(api, optim, pbf, cfg, batch)
+    dist_k = [_rel(a, b) for a, b in zip(g_bk, g_p)]
+    del g_bk
+    loss_bp, g_bp = _grads(api, optim, pbf, cfg.replace(use_kernels=False),
+                           batch)
+    dist_p = [_rel(a, b) for a, b in zip(g_bp, g_p)]
+    del g_bp, g_p, pbf
+    gc.collect()
+    torch.cuda.empty_cache()
+    excess = [a - b for a, b in zip(dist_k, dist_p)]
+    worst = int(np.argmax(excess))
+    print(f"  (b) bf16 gradients against the f32 plain path: loss kernels "
+          f"{loss_bk:.6f} plain {loss_bp:.6f}; largest kernel-path distance "
+          f"{max(dist_k):.3e}, plain-path {max(dist_p):.3e}; largest excess "
+          f"{excess[worst]:.3e} ({names[worst]}: {dist_k[worst]:.3e} vs "
+          f"{dist_p[worst]:.3e}; margin {TRAIN_BF16_MARGIN})")
+    check(all(np.isfinite(dist_k)) and excess[worst] <= TRAIN_BF16_MARGIN,
+          f"bf16 kernel-path gradient of {names[worst]} is farther from the "
+          f"f32 plain one than the bf16 plain path's by {excess[worst]:.3e}")
+    out["bf16"] = {"loss_kernels": loss_bk, "loss_plain": loss_bp,
+                   "max_dist_kernels": max(dist_k),
+                   "max_dist_plain": max(dist_p),
+                   "max_excess": excess[worst], "worst": names[worst],
+                   "dist_by_param": {n: [a, b] for n, a, b in
+                                     zip(names, dist_k, dist_p)}}
+
+    # (c) AdamW steps through the launcher's code
+    opt_cfg = optim.OptConfig(lr=TRAIN_LR, total_steps=TRAIN_STEPS,
+                              warmup_steps=max(1, TRAIN_STEPS // 10))
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    state, records = launch_train.run(cfg, data_cfg, opt_cfg, TRAIN_STEPS,
+                                      device="cuda",
+                                      log=lambda line: print("  " + line))
+    run_launches = ops.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    want = {k: TRAIN_STEPS * per_step.get(k, 0) for k in run_launches}
+    check(run_launches == want, f"{TRAIN_STEPS} steps launched "
+                                f"{run_launches}, expected {want}")
+    losses = [r["loss"] for r in records]
+    check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(last < first, f"the loss did not fall: first 5 steps {first:.4f}, "
+                        f"last 5 {last:.4f}")
+    step_ms = statistics.median(r["step_ms"] for r in records[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    # one more step with the launch counters read around it, then two
+    # under the profiler (device busy; the idle share is taken against
+    # the unprofiled median step)
+    step_fn = umode.make_train_step(cfg, opt_cfg)
+    batches = [SyntheticLM(data_cfg).global_batch(TRAIN_STEPS + i)
+               for i in range(3)]
+    ops.reset_launches()
+    state, m = step_fn(state, batches[0])
+    m["loss"].item()
+    one = {k: v for k, v in ops.launch_counts().items() if v}
+    check(one == per_step, f"one step launched {one}, expected {per_step}")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[1:]:
+            state, m = step_fn(state, b)
+            m["loss"].item()
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3 / 2
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 2
+    check(busy_ms > 0, "the profiler saw no device time in training steps")
+    groups = {}
+    for e in kernels:
+        g = next((g for g, pats in TRAIN_KERNEL_GROUPS
+                  if any(p in e.key for p in pats)), "other")
+        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3 / 2
+
+    # the step's two halves, CUDA events around each (host gaps included):
+    # loss and gradients, then the AdamW update
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    _, g = _grads(api, optim, state["params"], cfg,
+                  {k: torch.as_tensor(v, device="cuda")
+                   for k, v in batches[0].items()})
+    ev[1].record()
+    optim.adamw_update(state, optim.unflatten(state["params"], g), opt_cfg)
+    ev[2].record()
+    ev[2].synchronize()
+    halves = {"loss_and_grad_ms": ev[0].elapsed_time(ev[1]),
+              "adamw_update_ms": ev[1].elapsed_time(ev[2])}
+    del g
+    out["steps"] = {
+        "steps": TRAIN_STEPS, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+        "lr": TRAIN_LR, "losses": losses, "loss_first5": first,
+        "loss_last5": last, "step_ms": [r["step_ms"] for r in records],
+        "step_ms_median": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+        "peak_gib": peak, "base_gib": base / 2 ** 30,
+        "launches_per_step": one, "device_busy_ms": busy_ms,
+        "step_ms_profiled": prof_ms, "idle_share": 1 - busy_ms / step_ms,
+        "kernel_launches_per_step": sum(e.count for e in kernels) / 2,
+        "device_ms_per_step_by_group": groups, **halves}
+    print(f"  (c) {TRAIN_STEPS} AdamW steps, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}: loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of "
+          f"first 5 {first:.4f}, last 5 {last:.4f}); median step "
+          f"{step_ms:.1f} ms, {tokens / step_ms * 1e3:.0f} tok/s; peak "
+          f"{peak:.2f} GiB above the {base / 2 ** 30:.2f} GiB left before; "
+          f"launches per step {one}")
+    print(f"  device busy {busy_ms:.2f} ms of a step ({prof_ms:.1f} ms "
+          f"profiled), idle share {out['steps']['idle_share']:.3f}; device "
+          f"ms per step by kernel group {groups}; one more step: loss and "
+          f"gradients {halves['loss_and_grad_ms']:.1f} ms, AdamW update "
+          f"{halves['adamw_update_ms']:.1f} ms")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, run_launches
+
+
+def _paths(tree, prefix=()):
+    """The key paths of a nested dict, in ``optim.leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _paths(tree[k],
+                                                        prefix + (k,))]
+    return [prefix]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -812,6 +1264,7 @@ def main() -> int:
         serve[arch] = phase_serve(arch, phase)
         phase_f32(arch, phase + 1)
     mgmark_rows, mgmark_launches = phase_mgmark()
+    train, train_launches = phase_train()
     # (shape, dtype) of each kernel's row in the kernels line
     H, W, K, _ = STENCIL_CASES[0]
     L, size, dist, _, _ = BITONIC_CASES[0]
@@ -824,7 +1277,14 @@ def main() -> int:
                  "bitonic_stage": (f"L={L},size={size},dist={dist}",
                                    "float32"),
                  "bitonic_block": ("L={},size={}".format(
-                     *BITONIC_BLOCK_CASES[0][:2]), "float32")}
+                     *BITONIC_BLOCK_CASES[0][:2]), "float32"),
+                 "flash_attention_bwd": ("B={},S={},hd={}".format(
+                     *(FLASH_BWD_CASES[0][i] for i in (0, 1, 4))),
+                     "bfloat16"),
+                 "rmsnorm_bwd": ("rows={},d={}".format(*RMS_BWD_SHAPE),
+                                 "bfloat16"),
+                 "add_rmsnorm_bwd": ("rows={},d={}".format(*RMS_BWD_SHAPE),
+                                     "bfloat16")}
     source = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                   "src/repro/kernels/flash_attention.py:76"),
               "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -840,7 +1300,16 @@ def main() -> int:
               "bitonic_stage": ("src/repro_torch/kernels/csrc/bitonic.cu",
                                 "src/repro/kernels/bitonic.py:40"),
               "bitonic_block": ("src/repro_torch/kernels/csrc/bitonic.cu",
-                                "src/repro/kernels/bitonic.py:40")}
+                                "src/repro/kernels/bitonic.py:40"),
+              # the backward kernels have no TPU counterpart: they are the
+              # gradients of the forward kernels these lines name
+              "flash_attention_bwd": (
+                  "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                  "src/repro/kernels/flash_attention.py:76"),
+              "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                              "src/repro/kernels/rmsnorm.py:27"),
+              "add_rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                                  "src/repro/kernels/rmsnorm.py:27")}
     kernels = []
     for kname, rows in cases.items():
         main_row = next(r for r in rows
@@ -848,6 +1317,7 @@ def main() -> int:
         by_path = {arch: run["launches"][kname]
                    for arch, run in serve.items()}
         by_path["mgmark"] = mgmark_launches[kname]
+        by_path["train"] = train_launches[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": source[kname][0],
             "replaces": source[kname][1], "launches": sum(by_path.values()),
@@ -855,8 +1325,9 @@ def main() -> int:
             **{k: main_row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by",
                                         "library_ms", "shape", "dtype")},
+            **({"direction": "backward"} if kname.endswith("_bwd") else {}),
             **{k: main_row[k] for k in ("library", "library_calls",
-                                        "bound_ms_f32",
+                                        "bound_ms_f32", "lse_max_abs_err",
                                         "sort_ms", "torch_sort_ms",
                                         "sort_launches")
                if k in main_row},
@@ -867,7 +1338,8 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"device": name, "kernels": kernels, "serve": serve,
-         "mgmark": mgmark_rows, "seconds": time.perf_counter() - t0},
+         "mgmark": mgmark_rows, "train": train,
+         "seconds": time.perf_counter() - t0},
         indent=1))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -64,6 +64,11 @@
 //
 // Both: ragged lengths (rows past Sq, keys past Skv) are masked inside
 // the kernel, so any S is taken (the TPU wrapper asserts S % 128 == 0).
+// Given a non-null lse (B, H, Sq) f32, both also store each row's
+// log-sum-exp of its scaled scores, in natural-log units, for the
+// backward (csrc/flash_attention_bwd.cu): one store per row of Sq, from
+// the lane that holds the row's reduced (m, l).  Serving passes null and
+// stores nothing.
 // The causal mask is top-left aligned (kj <= qi); the wrapper only takes
 // causal calls with Sq == Skv, where that equals the bottom-right
 // alignment of the plain version.  The output is written in the input
@@ -93,7 +98,8 @@ struct Smem {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int Sq,
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int Sq,
                      int Skv, int G, long long q_sb, long long q_ss,
                      long long q_sh, long long k_sb, long long k_ss,
                      long long k_sh, long long v_sb, long long v_ss,
@@ -212,6 +218,9 @@ __global__ void __launch_bounds__(kThreads)
     const float lt = warp_sum(l[r]);
     const int qi = row0 + r;
     if (qi >= Sq) continue;
+    // m is the row's max scaled score; every lane holds it and lt
+    if (lse != nullptr && lane == 0)
+      lse[((size_t)b * gridDim.y + h) * Sq + qi] = m[r] + logf(lt);
     const float inv = 1.f / fmaxf(lt, 1e-30f);
 #pragma unroll
     for (int c = 0; c < DPL; ++c) {
@@ -223,7 +232,7 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int K, int Sq, int Skv,
+                   float* lse, int B, int H, int K, int Sq, int Skv,
                    const long long* st, float scale, int causal,
                    cudaStream_t stream) {
   constexpr int kSmem = sizeof(Smem<HD>);
@@ -237,7 +246,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, H / K, st[0],
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Skv, H / K, st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
       st[11], scale, causal);
   return cudaGetLastError();
@@ -245,14 +254,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 
 cudaError_t dispatch_hd_f32(int hd, const void* q, const void* k,
-                            const void* v, void* o, int B, int H, int K,
-                            int Sq, int Skv, const long long* st, float scale,
-                            int causal, cudaStream_t s) {
+                            const void* v, void* o, float* lse, int B, int H,
+                            int K, int Sq, int Skv, const long long* st,
+                            float scale, int causal, cudaStream_t s) {
   switch (hd) {
-    case 16: return launch<float, 16>(q, k, v, o, B, H, K, Sq, Skv, st, scale, causal, s);
-    case 32: return launch<float, 32>(q, k, v, o, B, H, K, Sq, Skv, st, scale, causal, s);
-    case 64: return launch<float, 64>(q, k, v, o, B, H, K, Sq, Skv, st, scale, causal, s);
-    case 128: return launch<float, 128>(q, k, v, o, B, H, K, Sq, Skv, st, scale, causal, s);
+    case 16: return launch<float, 16>(q, k, v, o, lse, B, H, K, Sq, Skv, st, scale, causal, s);
+    case 32: return launch<float, 32>(q, k, v, o, lse, B, H, K, Sq, Skv, st, scale, causal, s);
+    case 64: return launch<float, 64>(q, k, v, o, lse, B, H, K, Sq, Skv, st, scale, causal, s);
+    case 128: return launch<float, 128>(q, k, v, o, lse, B, H, K, Sq, Skv, st, scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -360,7 +369,8 @@ __global__ void __launch_bounds__(kThreads)
     flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
-                 __nv_bfloat16* __restrict__ o, int Sq, int Skv, int G,
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 int Sq, int Skv, int G,
                  long long o_sb, long long o_ss, long long o_sh,
                  float scale_log2, int causal) {
   using C = Cfg<HD>;
@@ -491,6 +501,18 @@ __global__ void __launch_bounds__(kThreads)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
+  // the log-sum-exp in natural-log units: m is the raw max score and l
+  // the sum of exp2((s - m) * scale_log2); one lane of the row's quad
+  // stores it
+  if (lse != nullptr && (lane & 3) == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = row0 + 8 * r;
+      if (qi < Sq)
+        lse[((size_t)b * gridDim.x + h) * Sq + qi] =
+            (m[r] * scale_log2 + log2f(l[r])) * 0.6931471805599453f;
+    }
+  }
   __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -560,8 +582,9 @@ bool encode(CUtensorMap* map, const void* ptr, int heads, int seq, int batch,
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int K, int Sq, int Skv, const long long* st,
-                   float scale, int causal, cudaStream_t stream) {
+                   float* lse, int B, int H, int K, int Sq, int Skv,
+                   const long long* st, float scale, int causal,
+                   cudaStream_t stream) {
   using C = Cfg<HD>;
   CUtensorMap tq, tk, tv;
   if (!encode<HD>(&tq, q, H, Sq, B, st[0], st[1], st[2]) ||
@@ -574,20 +597,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (opt_in != cudaSuccess) return opt_in;
   const dim3 grid(H, B, (Sq + kBM - 1) / kBM);
   kernel<<<grid, kThreads, C::kSmem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Skv, H / K, st[9],
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Sq, Skv, H / K, st[9],
       st[10], st[11], scale * 1.4426950408889634f, causal);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                        void* o, int B, int H, int K, int Sq, int Skv,
-                        const long long* st, float scale, int causal,
+                        void* o, float* lse, int B, int H, int K, int Sq,
+                        int Skv, const long long* st, float scale, int causal,
                         cudaStream_t s) {
   switch (hd) {
-    case 16: return launch<16>(q, k, v, o, B, H, K, Sq, Skv, st, scale, causal, s);
-    case 32: return launch<32>(q, k, v, o, B, H, K, Sq, Skv, st, scale, causal, s);
-    case 64: return launch<64>(q, k, v, o, B, H, K, Sq, Skv, st, scale, causal, s);
-    case 128: return launch<128>(q, k, v, o, B, H, K, Sq, Skv, st, scale, causal, s);
+    case 16: return launch<16>(q, k, v, o, lse, B, H, K, Sq, Skv, st, scale, causal, s);
+    case 32: return launch<32>(q, k, v, o, lse, B, H, K, Sq, Skv, st, scale, causal, s);
+    case 64: return launch<64>(q, k, v, o, lse, B, H, K, Sq, Skv, st, scale, causal, s);
+    case 128: return launch<128>(q, k, v, o, lse, B, H, K, Sq, Skv, st, scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -598,13 +621,14 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 }  // namespace repro_torch
 
 // q, o: (B, Sq, H, hd); k, v: (B, Skv, K, hd), all of one dtype, last
-// dimension contiguous.  strides[12] holds the (batch, seq, head) element
-// strides of q, k, v and o in that order.  bf16 also needs 16-byte
-// aligned q, k, v and their strides in multiples of 8 elements (TMA).
-// Returns the cudaError_t of the launch.
+// dimension contiguous.  lse: null, or (B, H, Sq) f32 contiguous, which
+// receives each row's log-sum-exp.  strides[12] holds the (batch, seq,
+// head) element strides of q, k, v and o in that order.  bf16 also needs
+// 16-byte aligned q, k, v and their strides in multiples of 8 elements
+// (TMA).  Returns the cudaError_t of the launch.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
-                                   const void* v, void* o, int B, int H,
-                                   int K, int Sq, int Skv, int hd,
+                                   const void* v, void* o, float* lse, int B,
+                                   int H, int K, int Sq, int Skv, int hd,
                                    const long long* strides, float scale,
                                    int causal, void* stream) {
   using namespace repro_torch;
@@ -614,11 +638,11 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat32:
-      return dispatch_hd_f32(hd, q, k, v, o, B, H, K, Sq, Skv, strides, scale,
-                             causal, s);
+      return dispatch_hd_f32(hd, q, k, v, o, lse, B, H, K, Sq, Skv, strides,
+                             scale, causal, s);
     case kBFloat16:
-      return tc::dispatch_hd(hd, q, k, v, o, B, H, K, Sq, Skv, strides, scale,
-                             causal, s);
+      return tc::dispatch_hd(hd, q, k, v, o, lse, B, H, K, Sq, Skv, strides,
+                             scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }

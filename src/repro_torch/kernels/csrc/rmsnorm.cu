@@ -34,6 +34,22 @@
 // prologue in the second pass.  The sum of squares is reduced with
 // warp shuffles plus one shared-memory step across the block's warps.  No
 // scratch in device memory, no atomics, nothing allocated.
+//
+// Backward (rmsnorm_bwd below; no TPU counterpart, the JAX package
+// differentiates plain jnp): the gradients of the plain norm and of the
+// residual form, ref.py::rmsnorm_bwd_ref and add_rmsnorm_bwd_ref.  Per row
+// r = rsqrt(mean(x^2) + eps) and g = dy * w, then
+//   dx = r g - x r^3 mean(g x)   (+ dh, the gradient of h, in residual
+//                                 mode, where x is the h the forward wrote)
+//   dw = sum over rows of dy x r.
+// Bytes bound it, as the forward: x, dy (and dh) read once, dx written
+// once.  A block walks rows blockIdx.x, blockIdx.x + gridDim.x, ... (at
+// most two blocks per SM); each thread keeps its packs of the row in
+// registers between the two row sums (one shared-memory step for both)
+// and the output, and accumulates dw for its own columns across its rows
+// in registers.  dw leaves as one f32 row of partials per block, summed
+// in a fixed order by a second small launch and cast to w's dtype:
+// deterministic, no atomics.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -152,6 +168,148 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
+// ---- backward ----------------------------------------------------------
+constexpr int kBwdThreads = 256;
+
+// (sum of a, sum of b) over the block (blockDim.x a multiple of 32); the
+// block may call it again at once (the trailing barrier).
+__device__ __forceinline__ float2 block_sum2(float a, float b) {
+  __shared__ float2 warp_sums[kBwdThreads / 32];
+  a = warp_sum(a);
+  b = warp_sum(b);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = make_float2(a, b);
+  __syncthreads();
+  float2 t = make_float2(0.f, 0.f);
+  for (int i = 0; i < (int)(blockDim.x >> 5); ++i) {
+    t.x += warp_sums[i].x;
+    t.y += warp_sums[i].y;
+  }
+  __syncthreads();
+  return t;
+}
+
+// MAXP > 0: each thread holds at most MAXP packs of a row in registers and
+// its dw partial there too; MAXP == 0: any width, the row read twice and
+// the dw partial kept in this block's row of `partial`.
+template <typename T, int VEC, int MAXP, bool RESID>
+__global__ void __launch_bounds__(kBwdThreads)
+    rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                       const T* __restrict__ dy, const T* __restrict__ dh,
+                       T* __restrict__ dx, float* __restrict__ partial,
+                       int rows, int d, float eps) {
+  using P = Pack<T, VEC>;
+  const int nvec = d / VEC;
+  const P* wr = reinterpret_cast<const P*>(w);
+  float* part = partial + (size_t)blockIdx.x * d;
+  const float inv_d = 1.f / (float)d;
+
+  if constexpr (MAXP > 0) {
+    float dw[MAXP][VEC];
+#pragma unroll
+    for (int k = 0; k < MAXP; ++k)
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) dw[k][j] = 0.f;
+    for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+      const size_t off = (size_t)row * d;
+      const P* xr = reinterpret_cast<const P*>(x + off);
+      const P* dyr = reinterpret_cast<const P*>(dy + off);
+      float xv[MAXP][VEC], dv[MAXP][VEC];
+      float sxx = 0.f, sgx = 0.f;
+#pragma unroll
+      for (int k = 0; k < MAXP; ++k) {
+        const int i = threadIdx.x + k * blockDim.x;
+        if (i < nvec) {
+          const P xp = xr[i], dp = dyr[i], wp = wr[i];
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) {
+            xv[k][j] = to_f32(xp.v[j]);
+            dv[k][j] = to_f32(dp.v[j]);
+            sxx += xv[k][j] * xv[k][j];
+            sgx += dv[k][j] * to_f32(wp.v[j]) * xv[k][j];
+          }
+        }
+      }
+      const float2 t = block_sum2(sxx, sgx);
+      const float r = rsqrtf(t.x * inv_d + eps);
+      const float c = r * r * r * t.y * inv_d;
+#pragma unroll
+      for (int k = 0; k < MAXP; ++k) {
+        const int i = threadIdx.x + k * blockDim.x;
+        if (i < nvec) {
+          const P wp = wr[i];
+          P hp, op;
+          if constexpr (RESID) hp = reinterpret_cast<const P*>(dh + off)[i];
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) {
+            float g = r * dv[k][j] * to_f32(wp.v[j]) - xv[k][j] * c;
+            if constexpr (RESID) g += to_f32(hp.v[j]);
+            op.v[j] = from_f32<T>(g);
+            dw[k][j] += dv[k][j] * xv[k][j] * r;
+          }
+          reinterpret_cast<P*>(dx + off)[i] = op;
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < MAXP; ++k) {
+      const int i = threadIdx.x + k * blockDim.x;
+      if (i < nvec)
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) part[i * VEC + j] = dw[k][j];
+    }
+  } else {
+    // each thread owns the same columns in every row, so its partials need
+    // no barrier between the zeroing and the sums
+    for (int i = threadIdx.x; i < nvec; i += blockDim.x)
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) part[i * VEC + j] = 0.f;
+    for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+      const size_t off = (size_t)row * d;
+      const P* xr = reinterpret_cast<const P*>(x + off);
+      const P* dyr = reinterpret_cast<const P*>(dy + off);
+      float sxx = 0.f, sgx = 0.f;
+      for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
+        const P xp = xr[i], dp = dyr[i], wp = wr[i];
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float xf = to_f32(xp.v[j]);
+          sxx += xf * xf;
+          sgx += to_f32(dp.v[j]) * to_f32(wp.v[j]) * xf;
+        }
+      }
+      const float2 t = block_sum2(sxx, sgx);
+      const float r = rsqrtf(t.x * inv_d + eps);
+      const float c = r * r * r * t.y * inv_d;
+      for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
+        const P xp = xr[i], dp = dyr[i], wp = wr[i];
+        P hp, op;
+        if constexpr (RESID) hp = reinterpret_cast<const P*>(dh + off)[i];
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float xf = to_f32(xp.v[j]), df = to_f32(dp.v[j]);
+          float g = r * df * to_f32(wp.v[j]) - xf * c;
+          if constexpr (RESID) g += to_f32(hp.v[j]);
+          op.v[j] = from_f32<T>(g);
+          part[i * VEC + j] += df * xf * r;
+        }
+        reinterpret_cast<P*>(dx + off)[i] = op;
+      }
+    }
+  }
+}
+
+// dw[col] = the sum of the nblk partial rows at col, in block order.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    rmsnorm_bwd_dw(const float* __restrict__ partial, T* __restrict__ dw,
+                   int nblk, int d) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= d) return;
+  float sum = 0.f;
+  for (int b = 0; b < nblk; ++b) sum += partial[(size_t)b * d + col];
+  dw[col] = from_f32<T>(sum);
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -230,8 +388,86 @@ cudaError_t launch_mode(const void* x, const void* r, const void* z,
   return launch<T, kPlain>(x, nullptr, w, out, h, rows, d, eps, s);
 }
 
+template <typename T, int VEC, bool RESID>
+cudaError_t launch_bwd_vec(const T* x, const T* w, const T* dy, const T* dh,
+                           T* dx, float* partial, int rows, int d, float eps,
+                           int nblk, cudaStream_t stream) {
+  const int n = d / VEC;
+  const int threads = n >= kBwdThreads ? kBwdThreads : (n + 31) / 32 * 32;
+  const int packs = (n + threads - 1) / threads;
+  if (packs <= 1)
+    rmsnorm_bwd_kernel<T, VEC, 1, RESID><<<nblk, threads, 0, stream>>>(
+        x, w, dy, dh, dx, partial, rows, d, eps);
+  else if (packs <= 2)
+    rmsnorm_bwd_kernel<T, VEC, 2, RESID><<<nblk, threads, 0, stream>>>(
+        x, w, dy, dh, dx, partial, rows, d, eps);
+  else if (packs <= 4)
+    rmsnorm_bwd_kernel<T, VEC, 4, RESID><<<nblk, threads, 0, stream>>>(
+        x, w, dy, dh, dx, partial, rows, d, eps);
+  else
+    rmsnorm_bwd_kernel<T, VEC, 0, RESID><<<nblk, threads, 0, stream>>>(
+        x, w, dy, dh, dx, partial, rows, d, eps);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* x, const void* w, const void* dy,
+                       const void* dh, void* dx, void* dw, float* partial,
+                       int rows, int d, int nblk, float eps,
+                       cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  const T* dyt = static_cast<const T*>(dy);
+  const T* dht = static_cast<const T*>(dh);
+  T* dxt = static_cast<T*>(dx);
+  const bool vec = d % kVec == 0 && aligned16(x) && aligned16(w) &&
+                   aligned16(dy) && aligned16(dx) &&
+                   (dh == nullptr || aligned16(dh));
+  cudaError_t err;
+  if (dh != nullptr)
+    err = vec ? launch_bwd_vec<T, kVec, true>(xt, wt, dyt, dht, dxt, partial,
+                                              rows, d, eps, nblk, stream)
+              : launch_bwd_vec<T, 1, true>(xt, wt, dyt, dht, dxt, partial,
+                                           rows, d, eps, nblk, stream);
+  else
+    err = vec ? launch_bwd_vec<T, kVec, false>(xt, wt, dyt, dht, dxt, partial,
+                                               rows, d, eps, nblk, stream)
+              : launch_bwd_vec<T, 1, false>(xt, wt, dyt, dht, dxt, partial,
+                                            rows, d, eps, nblk, stream);
+  if (err != cudaSuccess) return err;
+  rmsnorm_bwd_dw<T><<<(d + 255) / 256, 256, 0, stream>>>(
+      partial, static_cast<T*>(dw), nblk, d);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace repro_torch
+
+// x, dy, dx: (rows, d) contiguous; w, dw: (d,); dh: null (the plain
+// norm) or (rows, d) contiguous (residual mode: x is the forward's h and
+// dx = dh + the norm's input gradient); all of one dtype.  partial:
+// (nblk, d) f32 scratch, 1 <= nblk <= rows: the grid of the first launch,
+// whose blocks each write one row of dw partials that the second launch
+// sums.  Two launches on `stream`; returns the first cudaError_t.
+extern "C" int rmsnorm_bwd(int dtype, const void* x, const void* w,
+                           const void* dy, const void* dh, void* dx, void* dw,
+                           float* partial, int rows, int d, int nblk,
+                           float eps, void* stream) {
+  using namespace repro_torch;
+  if (rows <= 0 || d <= 0 || nblk <= 0 || nblk > rows)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kFloat32:
+      return launch_bwd<float>(x, w, dy, dh, dx, dw, partial, rows, d, nblk,
+                               eps, s);
+    case kBFloat16:
+      return launch_bwd<__nv_bfloat16>(x, w, dy, dh, dx, dw, partial, rows, d,
+                                       nblk, eps, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 // x, out: (rows, d) contiguous; w: (d,); r, z and h null or (rows, d)
 // contiguous; all of one dtype.  r (with h, which receives x + r) selects

@@ -7,11 +7,16 @@ it launches the CUDA kernel or raises; it never falls back.  Each
 wrapper carries a plain integer ``launches`` that counts its kernel
 launches, so a run can show that its path went through the kernels.
 
-The CUDA kernels have no backward (nor have the TPU kernels they port),
-and their outputs, filled through ctypes, carry no ``grad_fn``.  So on
-the card a wrapper refuses, with ``check_no_grad``, any input that
-requires grad while grad mode is on, rather than cut the graph without
-a word; on the CPU the plain versions differentiate as usual.
+Outputs filled through ctypes carry no ``grad_fn``, so gradients on the
+card go through ``torch.autograd.Function``s whose backward is a kernel
+too: ``flash_attention``, ``rmsnorm`` and ``add_rmsnorm`` apply theirs
+(``_FlashAttention``, ``_RMSNorm``, ``_AddRMSNorm``) when grad mode is on
+and an input requires grad, and otherwise launch the forward alone, with
+nothing saved.  Their backward kernels are not themselves
+differentiable: a double backward raises.  The kernels without a
+backward (``gated_rmsnorm``, SSD, stencil, bitonic) refuse such inputs
+with ``check_no_grad`` rather than cut the graph without a word.  On the
+CPU the plain versions differentiate as usual.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import typing
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from . import bitonic as _bitonic
 from . import flash_attention as _fa
@@ -27,7 +33,8 @@ from . import rmsnorm as _rms
 from . import ssd as _ssd
 from . import stencil as _stencil
 
-__all__ = ["flash_attention", "rmsnorm", "add_rmsnorm", "gated_rmsnorm",
+__all__ = ["flash_attention", "flash_attention_bwd", "rmsnorm",
+           "rmsnorm_bwd", "add_rmsnorm", "add_rmsnorm_bwd", "gated_rmsnorm",
            "ssd_chunk_kernel", "ssd_chunked", "stencil2d", "bitonic_stage",
            "bitonic_block", "check_no_grad", "launch_counts",
            "reset_launches", "ref"]
@@ -40,52 +47,160 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return devices.pop().type == "cpu"
 
 
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
-    """Raise if autograd would need a backward of kernel ``name``: grad
-    mode is on and an input requires grad.  The wrappers call it before
-    they launch on the card; under ``torch.no_grad()`` it passes."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    """Raise if autograd would need a backward of kernel ``name``, which
+    has none: grad mode is on and an input requires grad.  The wrappers
+    of the kernels without a backward call it before they launch on the
+    card; under ``torch.no_grad()`` it passes."""
+    if _needs_grad(*tensors):
         raise RuntimeError(
             f"{name}: the CUDA kernel has no backward, and an input requires "
-            f"grad.  Training through the kernels waits for the port's "
-            f"training slice; until then train on the plain path "
+            f"grad.  Its backward comes with the port's mamba training "
+            f"slice; until then train on the plain path "
             f"(cfg.replace(use_kernels=False)), or call under "
             f"torch.no_grad() to serve")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward kernel with the log-sum-exp stored; backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = _fa.flash_attention(q, k, v, causal=causal, with_lse=True)
+        flash_attention.launches += 1
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, out, lse, do, ctx.causal),
+                None)
 
 
 def flash_attention(q, k, v, causal: bool = True):
     """q (B,Sq,H,hd); k/v (B,Skv,K,hd); H % K == 0 -> out (B,Sq,H,hd).
     Causal calls need Sq == Skv, on every device (the kernel's top-left
-    mask equals the plain version's bottom-right one only there)."""
+    mask equals the plain version's bottom-right one only there).  On the
+    card, with grad, the backward runs ``flash_attention_bwd``."""
     if causal and q.shape[1] != k.shape[1]:
         raise ValueError(f"causal flash_attention takes Sq == Skv, got "
                          f"{q.shape[1]} != {k.shape[1]}")
     if _on_cpu(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal)
-    check_no_grad("flash_attention", q, k, v)
+    if _needs_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal)
     out = _fa.flash_attention(q, k, v, causal=causal)
     flash_attention.launches += 1
     return out
 
 
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
+    """Gradients (dq, dk, dv) of ``flash_attention`` from its output o,
+    its log-sum-exp lse (B,H,Sq) f32 and the incoming do, in the inputs'
+    dtypes (``ref.flash_attention_bwd_ref``; three launches on the card,
+    counted as one call)."""
+    if _on_cpu(q, k, v, o, lse, do):
+        return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+    out = _fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    flash_attention_bwd.launches += 1
+    return out
+
+
+class _RMSNorm(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        out = _rms.rmsnorm(x, w, eps)
+        rmsnorm.launches += 1
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        return (*rmsnorm_bwd(x, w, dy, ctx.eps), None)
+
+
+class _AddRMSNorm(torch.autograd.Function):
+    """(h, out) = (x + r, rmsnorm(x + r)); x and r get the same gradient.
+    Either incoming gradient may be None (a model that reads only one of
+    the two outputs)."""
+
+    @staticmethod
+    def forward(ctx, x, r, w, eps):
+        h, out = _rms.add_rmsnorm(x, r, w, eps)
+        add_rmsnorm.launches += 1
+        ctx.save_for_backward(h, w)
+        ctx.eps = eps
+        ctx.set_materialize_grads(False)
+        return h, out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dh, dout):
+        if dout is None:                       # the norm's output unread
+            return dh, dh, None, None
+        h, w = ctx.saved_tensors
+        dx, dw = add_rmsnorm_bwd(h, w, dout, dh, ctx.eps)
+        return dx, dx, dw, None
+
+
 def rmsnorm(x, w, eps: float = 1e-6):
-    """x (..., d), w (d,) -> x * rsqrt(mean(x^2) + eps) * w, fused."""
+    """x (..., d), w (d,) -> x * rsqrt(mean(x^2) + eps) * w, fused.  On
+    the card, with grad, the backward runs ``rmsnorm_bwd``."""
     if _on_cpu(x, w):
         return ref.rmsnorm_ref(x, w, eps)
-    check_no_grad("rmsnorm", x, w)
+    if _needs_grad(x, w):
+        return _RMSNorm.apply(x, w, eps)
     out = _rms.rmsnorm(x, w, eps)
     rmsnorm.launches += 1
     return out
 
 
+def rmsnorm_bwd(x, w, dy, eps: float = 1e-6):
+    """Gradients (dx, dw) of ``rmsnorm(x, w)`` for the incoming dy
+    (``ref.rmsnorm_bwd_ref``; two launches on the card, counted as one
+    call)."""
+    if _on_cpu(x, w, dy):
+        return ref.rmsnorm_bwd_ref(x, w, dy, eps)
+    out = _rms.rmsnorm_bwd(x, w, dy, eps)
+    rmsnorm_bwd.launches += 1
+    return out
+
+
 def add_rmsnorm(x, r, w, eps: float = 1e-6):
     """x, r (..., d), w (d,) -> (h, out): the residual add h = x + r and
-    out = rmsnorm(h, w), in one launch on the card."""
+    out = rmsnorm(h, w), in one launch on the card.  On the card, with
+    grad, the backward runs ``add_rmsnorm_bwd``."""
     if _on_cpu(x, r, w):
         return ref.add_rmsnorm_ref(x, r, w, eps)
-    check_no_grad("add_rmsnorm", x, r, w)
+    if _needs_grad(x, r, w):
+        return _AddRMSNorm.apply(x, r, w, eps)
     out = _rms.add_rmsnorm(x, r, w, eps)
     add_rmsnorm.launches += 1
+    return out
+
+
+def add_rmsnorm_bwd(h, w, dout, dh=None, eps: float = 1e-6):
+    """Gradients (dx, dw) of ``add_rmsnorm``'s (h, out) from the h it
+    wrote and the incoming dout and dh (None: zero); dx is the gradient of
+    both addends (``ref.add_rmsnorm_bwd_ref``; the rmsnorm backward
+    kernel's residual mode on the card, two launches counted as one
+    call)."""
+    extra = () if dh is None else (dh,)
+    if _on_cpu(h, w, dout, *extra):
+        return ref.add_rmsnorm_bwd_ref(h, w, dout, dh, eps)
+    out = _rms.rmsnorm_bwd(h, w, dout, eps, dh=dh)
+    add_rmsnorm_bwd.launches += 1
     return out
 
 
@@ -225,7 +340,8 @@ def bitonic_block(x, size: int, block: int = 2048, offset: int = 0):
 
 
 _WRAPPERS = (flash_attention, rmsnorm, add_rmsnorm, gated_rmsnorm,
-             ssd_chunk_kernel, stencil2d, bitonic_stage, bitonic_block)
+             ssd_chunk_kernel, stencil2d, bitonic_stage, bitonic_block,
+             flash_attention_bwd, rmsnorm_bwd, add_rmsnorm_bwd)
 
 
 def launch_counts() -> typing.Dict[str, int]:

@@ -12,6 +12,12 @@ import math
 import torch
 
 
+def _f32(t):
+    """t in f32, the kernels' arithmetic; f64 stays f64, so that
+    ``torch.autograd.gradcheck`` can hold the plain versions in f64."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def flash_attention_ref(q, k, v, causal: bool = True):
     """q (B,Sq,H,hd); k/v (B,Skv,K,hd) GQA -> (B,Sq,H,hd), f32 math.
 
@@ -21,23 +27,85 @@ def flash_attention_ref(q, k, v, causal: bool = True):
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
     G = H // K
-    qg = q.reshape(B, Sq, K, G, hd).float()
-    s = torch.einsum("bskgh,btkh->bkgst", qg, k.float()) / math.sqrt(hd)
+    qg = _f32(q.reshape(B, Sq, K, G, hd))
+    s = torch.einsum("bskgh,btkh->bkgst", qg, _f32(k)) / math.sqrt(hd)
     if causal:
         mask = torch.ones(Sq, Skv, dtype=torch.bool,
                           device=q.device).tril(Skv - Sq)
         s = s.masked_fill(~mask, float("-inf"))
     w = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgst,btkh->bskgh", w, v.float())
+    out = torch.einsum("bkgst,btkh->bskgh", w, _f32(v))
     return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def _causal_top_left(q, k, causal: bool):
+    """The flash kernels' mask, key kj visible to row qi iff kj <= qi
+    (top-left); None when not causal.  Causal calls take Sq == Skv, where
+    it equals ``flash_attention_ref``'s bottom-right mask."""
+    Sq, Skv = q.shape[1], k.shape[1]
+    if not causal:
+        return None
+    if Sq != Skv:
+        raise ValueError(f"causal flash attention takes Sq == Skv, got "
+                         f"{Sq} != {Skv}")
+    return torch.ones(Sq, Skv, dtype=torch.bool, device=q.device).tril()
+
+
+def _flash_scores(q, k, causal: bool):
+    """scale * Q K^T in f32 as (B, K, G, Sq, Skv), -inf where masked."""
+    B, Sq, H, hd = q.shape
+    K = k.shape[2]
+    qg = _f32(q.reshape(B, Sq, K, H // K, hd))
+    s = torch.einsum("bskgh,btkh->bkgst", qg, _f32(k)) / math.sqrt(hd)
+    mask = _causal_top_left(q, k, causal)
+    return s if mask is None else s.masked_fill(~mask, float("-inf"))
+
+
+def flash_attention_lse_ref(q, k, v, causal: bool = True):
+    """The forward's log-sum-exp of each row's scaled scores, in natural-log
+    units: (B, H, Sq) f32, head h = kv-head * G + g as in the kernels."""
+    B, Sq, H, _ = q.shape
+    return torch.logsumexp(_flash_scores(q, k, causal), dim=-1) \
+        .reshape(B, H, Sq)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True):
+    """Gradients (dq, dk, dv) of flash attention, step by step as the
+    backward kernel computes them, in f32, each rounded to its input's
+    dtype at the end:
+
+        D  = rowsum(dO * O)
+        P  = exp(scale * Q K^T - lse)      (0 where masked)
+        dV = P^T dO        dS = P * (dO V^T - D)
+        dQ = scale * dS K  dK = scale * dS^T Q
+
+    dK and dV are summed over the G = H / K q-heads of each kv-head.
+    o (B,Sq,H,hd) is the forward's output, lse (B,H,Sq) its log-sum-exp,
+    do (B,Sq,H,hd) the incoming gradient."""
+    B, Sq, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(hd)
+    grp = (lambda t: _f32(t.reshape(B, Sq, K, G, hd)))
+    qg, og, dog = grp(q), grp(o), grp(do)
+    p = torch.exp(_flash_scores(q, k, causal)
+                  - _f32(lse).reshape(B, K, G, Sq)[..., None])
+    d = (dog * og).sum(-1).permute(0, 2, 3, 1)              # (B,K,G,Sq)
+    dv = torch.einsum("bkgst,bskgh->btkh", p, dog)
+    dp = torch.einsum("bskgh,btkh->bkgst", dog, _f32(v))
+    ds = p * (dp - d[..., None])
+    dq = torch.einsum("bkgst,btkh->bskgh", ds, _f32(k)) * scale
+    dk = torch.einsum("bkgst,bskgh->btkh", ds, qg) * scale
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def rmsnorm_ref(x, w, eps: float = 1e-6):
     """x (..., d), w (d,) -> x * rsqrt(mean(x^2) + eps) * w, f32 math,
     output in x's dtype."""
-    xf = x.float()
+    xf = _f32(x)
     var = xf.square().mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+    return (xf * torch.rsqrt(var + eps) * _f32(w)).to(x.dtype)
 
 
 def add_rmsnorm_ref(x, r, w, eps: float = 1e-6):
@@ -45,6 +113,35 @@ def add_rmsnorm_ref(x, r, w, eps: float = 1e-6):
     dtype, as the eager add is), out = rmsnorm_ref(h, w) -> (h, out)."""
     h = x + r
     return h, rmsnorm_ref(h, w, eps)
+
+
+def _rmsnorm_bwd_f32(x, w, dy, eps: float):
+    """(dx, dw) of rmsnorm in f32: per row r = rsqrt(mean(x^2) + eps) and
+    g = dy * w; dx = r g - x r^3 mean(g x); dw = sum over rows of dy x r."""
+    xf, dyf = _f32(x), _f32(dy)
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    g = dyf * _f32(w)
+    dx = r * g - xf * r ** 3 * (g * xf).mean(dim=-1, keepdim=True)
+    dw = (dyf * xf * r).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx, dw
+
+
+def rmsnorm_bwd_ref(x, w, dy, eps: float = 1e-6):
+    """Gradients (dx, dw) of ``rmsnorm_ref(x, w)`` for the incoming dy,
+    in f32, rounded to x's and w's dtypes at the end."""
+    dx, dw = _rmsnorm_bwd_f32(x, w, dy, eps)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+def add_rmsnorm_bwd_ref(h, w, dout, dh=None, eps: float = 1e-6):
+    """Gradients of ``add_rmsnorm_ref``'s (h, out) for the incoming dh and
+    dout, from the h the forward wrote: (dx, dw), where dx is the gradient
+    of both addends, dh + the norm's input gradient (dh None counts as
+    zero); f32, rounded to h's and w's dtypes at the end."""
+    dx, dw = _rmsnorm_bwd_f32(h, w, dout, eps)
+    if dh is not None:
+        dx = dx + _f32(dh)
+    return dx.to(h.dtype), dw.to(w.dtype)
 
 
 def gated_rmsnorm_ref(x, z, w, eps: float = 1e-6):

@@ -5,9 +5,12 @@ The kernel is launch-bound at the models' decode shapes: one block per
 row reads the row once and writes it once, and two optional operands
 fuse the op in front of the norm (the residual add, or Mamba2's gate)
 into the same launch (the design note is at the top of the source).
-This module checks what the kernel takes and raises on anything else;
-the public wrappers with the launch counters are ``ops.rmsnorm``,
-``ops.add_rmsnorm`` and ``ops.gated_rmsnorm``.
+The same source holds the backward of the plain and the residual form
+(``rmsnorm_bwd``: two launches, the second summing the first's per-block
+dw partials).  This module checks what the kernels take and raises on
+anything else; the public wrappers with the launch counters are
+``ops.rmsnorm``, ``ops.add_rmsnorm``, ``ops.gated_rmsnorm``,
+``ops.rmsnorm_bwd`` and ``ops.add_rmsnorm_bwd``.
 """
 from __future__ import annotations
 
@@ -22,7 +25,11 @@ _SIGNATURES = {
                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                      ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                      ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
+    "rmsnorm_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                    + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p],
+                    ctypes.c_int),
 }
+BWD_BLOCKS_PER_SM = 2       # the backward's grid: at most this many per SM
 
 
 def _launch(x, w, eps, r=None, z=None):
@@ -81,3 +88,53 @@ def gated_rmsnorm(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
     """x, z (..., d) contiguous, w (d,) -> rmsnorm(x * silu(z), w), silu(z)
     and the product rounded to the dtype."""
     return _launch(x, w, eps, z=z)[0]
+
+
+def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                eps: float = 1e-6, dh: torch.Tensor = None):
+    """Gradients (dx, dw) of ``rmsnorm(x, w)`` for the incoming dy; with
+    dh (residual mode) x is the h that ``add_rmsnorm`` wrote and dx also
+    carries dh, the gradient of h: dx = dh + the norm's input gradient,
+    the gradient of both addends.  x (..., d) contiguous, w (d,), dy and
+    dh of x's shape (made contiguous: a copy only if they are not), one
+    CUDA device, one dtype (f32 or bf16); dx in x's dtype, dw in w's."""
+    operands = [("x", x), ("w", w), ("dy", dy)] + (
+        [] if dh is None else [("dh", dh)])
+    if x.device.type != "cuda" or any(t.device != x.device
+                                      for _, t in operands):
+        raise ValueError(f"rmsnorm_bwd kernel takes its operands on one CUDA "
+                         f"device, got {[(n, str(t.device)) for n, t in operands]}")
+    if x.dtype not in build.DTYPES or any(t.dtype != x.dtype
+                                          for _, t in operands):
+        raise TypeError(f"rmsnorm_bwd kernel takes f32 or bf16 operands of "
+                        f"one dtype, got {[(n, t.dtype) for n, t in operands]}")
+    d = x.shape[-1] if x.dim() else 0
+    if d == 0 or tuple(w.shape) != (d,):
+        raise ValueError(f"rmsnorm_bwd kernel takes x (..., d>0) and w (d,), "
+                         f"got {tuple(x.shape)} and {tuple(w.shape)}")
+    if any(t.shape != x.shape for n, t in operands if n != "w"):
+        raise ValueError(f"rmsnorm_bwd kernel takes dy and dh of x's shape "
+                         f"{tuple(x.shape)}, got "
+                         f"{[(n, tuple(t.shape)) for n, t in operands]}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("rmsnorm_bwd kernel takes contiguous x and w")
+    rows = x.numel() // d
+    if rows >= 2 ** 31:
+        raise ValueError(f"rmsnorm_bwd kernel takes < 2^31 rows, got {rows}")
+    dx = torch.empty_like(x)
+    if rows == 0:
+        return dx, torch.zeros_like(w)
+    dy = dy.contiguous()
+    dh = None if dh is None else dh.contiguous()
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    nblk = min(rows, BWD_BLOCKS_PER_SM * sms)
+    dw = torch.empty_like(w)
+    partial = torch.empty((nblk, d), dtype=torch.float32, device=x.device)
+    lib = build.load("rmsnorm", _SIGNATURES)
+    err = lib.rmsnorm_bwd(build.DTYPES[x.dtype], x.data_ptr(), w.data_ptr(),
+                          dy.data_ptr(), None if dh is None else dh.data_ptr(),
+                          dx.data_ptr(), dw.data_ptr(), partial.data_ptr(),
+                          rows, d, nblk, eps,
+                          torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, err, "rmsnorm_bwd launch")
+    return dx, dw

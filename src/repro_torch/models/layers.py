@@ -48,6 +48,21 @@ def layer_slice(tree, i: int):
     return tree[i]
 
 
+def layer_slices(tree, n: int):
+    """``[layer_slice(tree, i) for i in range(n)]`` of a tree stacked on a
+    leading axis of length n, cut with one ``unbind`` per leaf.  For a
+    backward this matters: autograd stacks the n slices' gradients into
+    the leaf's gradient once, where n separate indexings would each add a
+    zero-padded full-size gradient (n^2 layers' worth of bytes)."""
+    if isinstance(tree, dict):
+        per_key = {k: layer_slices(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    if tree.shape[0] != n:
+        raise ValueError(f"a stacked leaf of shape {tuple(tree.shape)} has "
+                         f"no leading axis of {n} layers")
+    return tree.unbind(0)
+
+
 def dense_init(gen: torch.Generator, shape, dtype, scale: float = None):
     """Truncated-normal (+-2 sigma) fan-in init; stacked shapes keep the
     per-slice fan-in (``shape[-2]``)."""

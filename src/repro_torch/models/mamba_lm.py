@@ -54,8 +54,7 @@ def _add_norm(h, y, w, cfg: ModelConfig):
 def forward(p: Params, cfg: ModelConfig, tokens):
     """tokens (B,S) int -> (logits (B,S,V) f32, aux 0.0)."""
     h, y = L.embed(p, tokens), None
-    for i in range(cfg.num_layers):
-        lp = L.layer_slice(p["layers"], i)
+    for lp in L.layer_slices(p["layers"], cfg.num_layers):
         h, x = _add_norm(h, y, lp["ln"], cfg)
         y = S.mamba2_block(lp["ssm"], x, cfg)
     h = _add_norm(h, y, p["ln_f"], cfg)[1]

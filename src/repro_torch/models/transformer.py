@@ -82,9 +82,8 @@ def _hidden(p: Params, cfg: ModelConfig, tokens):
     h = L.embed(p, tokens)
     positions = torch.arange(h.shape[1], device=h.device)
     kvs, r = [], None
-    for i in range(cfg.num_layers):
-        h, r, kv = _layer_fwd(L.layer_slice(p["layers"], i), h, r, cfg,
-                              positions)
+    for lp in L.layer_slices(p["layers"], cfg.num_layers):
+        h, r, kv = _layer_fwd(lp, h, r, cfg, positions)
         kvs.append(kv)
     # the fused kernel also writes the last h, which nothing reads: one
     # (B, S, d) store, against a launch for an unfused add

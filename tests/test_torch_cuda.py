@@ -9,7 +9,11 @@ Tolerances: f32 atol 2e-5 / rtol 1e-4 for attention and 1e-5 for
 rmsnorm (sums in another order, no TF32); bf16 3e-2 (the bf16 kernel
 rounds the probabilities to bf16 before P V, and the output once); SSD
 and the f32 mamba prefill 1e-4 (tests/test_kernels.py's for the SSD
-kernel, whose 3xTF32 products keep f32's accuracy)."""
+kernel, whose 3xTF32 products keep f32's accuracy).  The backward
+kernels: f32 atol 1e-4 / rtol 1e-4 (sums of up to G * S products in
+another order), bf16 3e-2 (one rounding of each output, as the plain
+version); the forward's log-sum-exp atol 1e-4 / rtol 1e-4; model
+gradients per leaf within 1e-4 of the leaf's max |g| (f32)."""
 import numpy as np
 import pytest
 
@@ -403,11 +407,12 @@ def test_bs_sort_runs_no_plain_stage_on_the_card(cuda, L, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["qwen2-1.5b-smoke", "mamba2-1.3b-smoke"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b-smoke"])
 def test_loss_backward_on_the_kernel_path_raises(cuda, arch):
-    """The kernels have no backward: api.loss(...).backward() through them
-    raises instead of cutting the graph; the plain path differentiates,
-    and the kernel path serves under no_grad."""
+    """The SSD and gated-norm kernels have no backward:
+    api.loss(...).backward() through them raises instead of cutting the
+    graph; the plain path differentiates, and the kernel path serves under
+    no_grad.  (qwen's kernels have theirs: test_qwen_grads_*.)"""
     from repro_torch.models import api, get_config
     cfg = get_config(arch).replace(dtype="float32")
     params = api.init(0, cfg, device=cuda)
@@ -460,3 +465,199 @@ def test_decode_step_fuses_the_prologues(cuda, arch, per_layer):
     assert launched == {k: a * cfg.num_layers + b
                         for k, (a, b) in per_layer.items()}
     _assert_close(got, want, dict(atol=1e-4, rtol=1e-4))
+
+
+# ---------------------------------------------------------------------------
+# backward kernels (flash attention, rmsnorm and its residual form)
+# ---------------------------------------------------------------------------
+
+BWD_F32 = dict(atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal", [
+    (2, 1024, 1024, 12, 2, 128, True),           # qwen2-1.5b's training shape
+    (1, 995, 995, 12, 2, 128, True), (1, 1, 1, 12, 2, 128, True),
+    (2, 100, 100, 4, 2, 16, True), (2, 65, 65, 4, 4, 32, True),
+    (1, 77, 77, 6, 1, 64, True), (2, 50, 130, 4, 2, 128, False),
+    (1, 130, 33, 6, 3, 32, False)])
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, B, Sq, Skv, H, K, hd,
+                                        causal):
+    """The forward's LSE and the backward kernel against the plain
+    versions, on the same inputs (the kernel forward's o and lse)."""
+    dt = getattr(torch, dtype)
+    q = _rand((B, Sq, H, hd), 60, dt, cuda)
+    k, v = _rand((B, Skv, K, hd), 61, dt, cuda), _rand((B, Skv, K, hd), 62,
+                                                       dt, cuda)
+    do = _rand((B, Sq, H, hd), 63, dt, cuda)
+    from repro_torch.kernels import flash_attention as fa
+    o, lse = fa.flash_attention(q, k, v, causal=causal, with_lse=True)
+    _assert_close(lse, ref.flash_attention_lse_ref(q, k, v, causal),
+                  dict(atol=1e-4, rtol=1e-4))
+    n = ops.flash_attention_bwd.launches
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert ops.flash_attention_bwd.launches == n + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+    for g, w, x in zip(got, want, (q, k, v)):
+        assert g.dtype == dt and g.shape == x.shape and g.is_contiguous()
+        _assert_close(g, w, BWD_F32 if dtype == "float32" else BF16)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernel_takes_strided_heads(cuda):
+    """q/k/v as views of one fused projection and a non-contiguous dO."""
+    B, S, H, K, hd = 2, 70, 4, 2, 64
+    fused = _rand((B, S, (H + 2 * K) * hd), 64, torch.float32, cuda)
+    q, k, v = fused.split([H * hd, K * hd, K * hd], dim=-1)
+    q, k, v = (q.view(B, S, H, hd), k.view(B, S, K, hd), v.view(B, S, K, hd))
+    do = _rand((B, H, S, hd), 65, torch.float32, cuda).transpose(1, 2)
+    from repro_torch.kernels import flash_attention as fa
+    o, lse = fa.flash_attention(q, k, v, with_lse=True)
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do)
+    for g, w in zip(got, ref.flash_attention_bwd_ref(q, k, v, o, lse, do)):
+        _assert_close(g, w, BWD_F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d", [(2048, 1536), (1, 1536), (995, 2048),
+                                    (3, 100), (4, 8960), (300, 64)])
+@pytest.mark.parametrize("residual", [False, True])
+def test_rmsnorm_bwd_kernel_matches_plain(cuda, dtype, rows, d, residual):
+    dt = getattr(torch, dtype)
+    x = _rand((rows, d), 66, dt, cuda)
+    w = (1 + 0.1 * _rand((d,), 67, torch.float32, cuda)).to(dt)
+    dy = _rand((rows, d), 68, dt, cuda)
+    tol = BWD_F32 if dtype == "float32" else BF16
+    if residual:
+        dh = _rand((rows, d), 69, dt, cuda)
+        n = ops.add_rmsnorm_bwd.launches
+        got = ops.add_rmsnorm_bwd(x, w, dy, dh)
+        want = ref.add_rmsnorm_bwd_ref(x, w, dy, dh)
+        assert ops.add_rmsnorm_bwd.launches == n + 1
+    else:
+        n = ops.rmsnorm_bwd.launches
+        got = ops.rmsnorm_bwd(x, w, dy)
+        want = ref.rmsnorm_bwd_ref(x, w, dy)
+        assert ops.rmsnorm_bwd.launches == n + 1
+    torch.cuda.synchronize()
+    assert got[0].dtype == dt and got[1].dtype == dt
+    _assert_close(got[0], want[0], tol)
+    # dw is a sum over the rows: atol relative to its largest element
+    scale = float(want[1].float().abs().max())
+    _assert_close(got[1], want[1], dict(atol=tol["atol"] * max(1.0, scale),
+                                        rtol=tol["rtol"]))
+
+
+@pytest.mark.cuda
+def test_rmsnorm_bwd_kernel_is_deterministic(cuda):
+    x = _rand((2048, 1536), 70, torch.bfloat16, cuda)
+    w = _rand((1536,), 71, torch.bfloat16, cuda)
+    dy = _rand((2048, 1536), 72, torch.bfloat16, cuda)
+    a, b = ops.rmsnorm_bwd(x, w, dy), ops.rmsnorm_bwd(x, w, dy)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def _qwen_smoke_grads(params, cfg, batch):
+    flat = _leaves(params)
+    for t in flat:
+        t.requires_grad_(True)
+    try:
+        loss = api_loss(params, cfg, batch)
+        return loss.detach(), torch.autograd.grad(loss, flat)
+    finally:
+        for t in flat:
+            t.requires_grad_(False)
+
+
+def api_loss(params, cfg, batch):
+    from repro_torch.models import api
+    return api.loss(params, cfg, batch)
+
+
+@pytest.mark.cuda
+def test_qwen_grads_through_the_kernels_match_plain(cuda):
+    """qwen2-1.5b-smoke in f32 with attn_impl="flash" (the smoke config
+    selects "ref", which would never reach flash): every leaf's gradient
+    through the kernels' backward matches the plain path's, and each
+    backward kernel ran once per forward call."""
+    from repro_torch.models import api, get_config
+    cfg = get_config("qwen2-1.5b-smoke").replace(attn_impl="flash")
+    params = api.init(0, cfg, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(3))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    ops.reset_launches()
+    loss, got = _qwen_smoke_grads(params, cfg, batch)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    L = cfg.num_layers
+    assert counts == {"flash_attention": L, "flash_attention_bwd": L,
+                      "rmsnorm": 1, "rmsnorm_bwd": 1, "add_rmsnorm": 2 * L,
+                      "add_rmsnorm_bwd": 2 * L}
+    want_loss, want = _qwen_smoke_grads(params, cfg.replace(use_kernels=False),
+                                        batch)
+    assert abs(float(loss) - float(want_loss)) < 1e-4
+    for g, w in zip(got, want):
+        err = float((g - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), err
+
+
+@pytest.mark.cuda
+def test_serving_under_no_grad_stores_no_lse_and_launches_no_backward(
+        cuda, monkeypatch):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api, get_config
+    flags = []
+    real = fa.flash_attention
+
+    def spy(*args, **kwargs):
+        flags.append(kwargs.get("with_lse", False))
+        return real(*args, **kwargs)
+    monkeypatch.setattr(fa, "flash_attention", spy)
+    cfg = get_config("qwen2-1.5b-smoke").replace(attn_impl="flash",
+                                                 dtype="bfloat16")
+    params = api.init(0, cfg, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(4))
+    ops.reset_launches()
+    with torch.no_grad():
+        cache = api.init_cache(cfg, 2, 48, device=cuda)
+        _, cache = api.prefill(params, cfg, cache, {"tokens": toks})
+        api.decode_step(params, cfg, cache, toks[:, -1])
+    # and params that require grad, under no_grad, as an engine would hold
+    for t in _leaves(params):
+        t.requires_grad_(True)
+    with torch.no_grad():
+        api.forward(params, cfg, {"tokens": toks})
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 2 * cfg.num_layers
+    assert flags == [False] * (2 * cfg.num_layers)
+    assert counts["flash_attention_bwd"] == counts["rmsnorm_bwd"] == \
+        counts["add_rmsnorm_bwd"] == 0
+
+
+@pytest.mark.cuda
+def test_plain_backward_is_never_reached_on_the_card(cuda, monkeypatch):
+    """The plain versions, forward and backward, patched to raise: a
+    kernel-path backward on the card never calls them."""
+    from repro_torch.models import api, get_config
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+    for name in ("flash_attention_ref", "flash_attention_lse_ref",
+                 "flash_attention_bwd_ref", "rmsnorm_ref", "add_rmsnorm_ref",
+                 "rmsnorm_bwd_ref", "add_rmsnorm_bwd_ref"):
+        monkeypatch.setattr(ref, name, refuse)
+    for dtype in ("float32", "bfloat16"):
+        cfg = get_config("qwen2-1.5b-smoke").replace(attn_impl="flash",
+                                                     dtype=dtype)
+        params = api.init(0, cfg, device=cuda)
+        toks = torch.randint(0, cfg.vocab_size, (2, 33), device=cuda,
+                             generator=torch.Generator(cuda).manual_seed(5))
+        _, grads = _qwen_smoke_grads(
+            params, cfg, {"tokens": toks[:, :-1], "targets": toks[:, 1:]})
+        assert all(bool(torch.isfinite(g).all()) for g in grads)

@@ -220,7 +220,8 @@ def test_launchers_refuse_cpu_tensors():
 
 
 def test_build_names_libraries_by_source_hash():
-    assert build.sources() == ["bitonic", "flash_attention", "rmsnorm", "ssd",
+    assert build.sources() == ["bitonic", "flash_attention",
+                               "flash_attention_bwd", "rmsnorm", "ssd",
                                "stencil"]
     path = build.lib_path("rmsnorm")
     assert path.parent == build.BUILD_DIR
