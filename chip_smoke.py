@@ -8,7 +8,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
 1. build  — compile every CUDA kernel of the port from this checkout's
    sources (one nvcc per source, in parallel), print ptxas's report and
    count the tensor-core instructions (HGMMA, HMMA) in each library's
-   SASS with cuobjdump; flash_attention must hold HGMMA and ssd HMMA;
+   SASS with cuobjdump; flash_attention and flash_attention_bwd must hold
+   HGMMA and ssd HMMA;
 2. kernels — hold each kernel against its plain PyTorch version, bf16 and
    f32, at the serving, training and MGMark paths' shapes, and time the
    kernel, the plain version and one library call computing the same
@@ -16,7 +17,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    each backend the build offers, the fastest recorded, and for its
    backward that call's forward + backward less its forward; for the
    fused norms, the add or the gate and ``F.rms_norm`` as separate calls,
-   and for the norms' backward autograd of them less their forward); the
+   and for the norms' backward autograd of them less their forward); each
+   backward case also prints the device time of each of its launches
+   (torch.profiler), and autograd's beside the norms'; the
    forward's log-sum-exp is held to its plain version; the fused norms'
    h must equal the eager add bit for bit, and BS's whole sort on the
    kernels must equal ``torch.sort`` (timed beside it);
@@ -76,11 +79,13 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM datasheet peak
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12,
                   "tf32x3": 495e12 / 3}
 # the tensor-core instructions each redesigned kernel's SASS must hold
-TENSOR_CORE_SASS = {"flash_attention": "HGMMA", "ssd": "HMMA"}
+TENSOR_CORE_SASS = {"flash_attention": "HGMMA",
+                    "flash_attention_bwd": "HGMMA", "ssd": "HMMA"}
 SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
 TOL = {"float32": (2e-5, 1e-4), "bfloat16": (3e-2, 3e-2)}   # atol, rtol
 # the backward kernels: f32 sums of up to G * S products in another order;
-# bf16 one rounding of each output, as the plain version.  The forward's
+# bf16 P and dS rounded to bf16 before their products (the tensor-core
+# kernels' A operands) and one rounding of each output.  The forward's
 # log-sum-exp: f32 in both kernels.
 BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 3e-2)}
 LSE_TOL = (1e-4, 1e-4)
@@ -210,6 +215,28 @@ def time_ms(fn, iters: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def launch_ms(fn, reps: int = 10) -> dict:
+    """{kernel name: device ms per call} of each kernel ``fn`` launches,
+    from torch.profiler over ``reps`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / reps
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def print_launches(label: str, times: dict) -> None:
+    print(f"    {label} launches: " + "; ".join(
+        f"{name[:60]} {ms:.4f} ms" for name, ms in
+        sorted(times.items(), key=lambda kv: -kv[1])), flush=True)
 
 
 def ssd_f64(x, dt, cs, Bm, Cm):
@@ -403,6 +430,8 @@ def phase_kernels():
             nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
                 + 4 * lse.numel()
             n_ops = 2.5 * 4 * B * H * hd * S * (S + 1) / 2
+            times = launch_ms(
+                lambda: fa.flash_attention_bwd(q, k, v, o, lse, do))
             record("flash_attention_bwd", f"B={B},S={S},hd={hd}", dtype,
                    got, want,
                    lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
@@ -410,7 +439,9 @@ def phase_kernels():
                    sdpa_times(q, k, v, do), bound(nbytes, n_ops, dtype),
                    tol=BWD_TOL[dtype],
                    lse_max_abs_err=lse_err.max().item(),
-                   library_calls="SDPA forward + backward less forward")
+                   library_calls="SDPA forward + backward less forward",
+                   launch_ms=times)
+            print_launches("kernel", times)
 
     # the norms' backward at qwen2-1.5b's training rows, plain and
     # residual (dh in).  Bytes: x (h), dy (and dh) read once, w read once,
@@ -450,13 +481,22 @@ def phase_kernels():
             lib_ms = time_ms(lib_both) - time_ms(lib_fwd)
             n = x.numel()
             nbytes = ((3 + (dh is not None)) * n + 2 * d) * x.element_size()
+            times = launch_ms(lambda: rms.rmsnorm_bwd(x, w, dy, 1e-6, dh=dh))
+            # autograd's backward alone: a graph built once, kept
+            y = lib_fwd()
+            lib_times = launch_ms(lambda: torch.autograd.grad(
+                y, (xg, wg) if dh is None else (xg, rg, wg),
+                dy if dh is None else (dh, dy), retain_graph=True))
             record(kind, f"rows={rows},d={d}", dtype, got, want,
                    lambda: rms.rmsnorm_bwd(x, w, dy, 1e-6, dh=dh), plain,
                    {"autograd": lib_ms}, bound(nbytes, 12 * n, dtype),
                    tol=BWD_TOL[dtype],
                    library_calls=("F.rms_norm" if dh is None else
                                   "x + r; F.rms_norm")
-                   + ": forward + backward less forward")
+                   + ": forward + backward less forward",
+                   launch_ms=times, library_launch_ms=lib_times)
+            print_launches("kernel", times)
+            print_launches("autograd", lib_times)
 
     # qwen2-1.5b's d_model; mamba2-1.3b's gated norm over d_inner
     for d, rows_list in ((1536, RMS_ROWS), (4096, RMS_ROWS_MAMBA)):
@@ -1331,6 +1371,8 @@ def main() -> int:
                                         "sort_ms", "torch_sort_ms",
                                         "sort_launches")
                if k in main_row},
+            **({"launch_ms": main_row["launch_ms"]}
+               if "launch_ms" in main_row else {}),
             "max_abs_err_all_cases": max(r["max_abs_err"] for r in rows),
             "sass": sass.get(source[kname][0].split("/")[-1][:-3]),
             "cases": rows})

@@ -38,8 +38,8 @@
 //    is in flight, and the load of t+2 is issued as soon as t is done.
 //    TMA's out-of-bounds zero fill covers ragged S; masking past Sq and
 //    Skv and the causal mask stay in the kernel.
-//  * The tensor-map encoder is fetched through cudaGetDriverEntryPoint,
-//    so the library needs no link against the driver library.
+//  * The tensor-map encoder (hopper.cuh) is looked up at run time, so the
+//    library links against the CUDA runtime alone.
 //
 // f32: the CUDA-core kernel (flash_fwd_kernel below) is kept as it was
 // and deliberately not redesigned: its atol 2e-5 gate against the plain
@@ -73,8 +73,6 @@
 // causal calls with Sq == Skv, where that equals the bottom-right
 // alignment of the plain version.  The output is written in the input
 // dtype.
-#include <cuda.h>  // CUtensorMap and its enums (types only: no driver link)
-
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -279,72 +277,11 @@ constexpr int kStages = 2;    // K/V tiles in flight
 constexpr int kThreads = 128; // one warpgroup
 
 template <int HD>
-struct Cfg {
-  // Swizzle span in bytes: a row of a box is hd * 2 bytes, at most 128.
-  static constexpr int kSw = HD * 2 >= 128 ? 128 : HD * 2;
-  static constexpr int kCb = kSw / 2;            // columns of one TMA box
-  static constexpr int kBoxes = HD / kCb;        // boxes per 64-row tile
-  static constexpr int kBoxBytes = kBM * kSw;
-  static constexpr int kTileBytes = kBM * HD * 2;
-  static constexpr uint64_t kLayout = kSw == 128 ? 1 : kSw == 64 ? 2 : 3;
+struct Cfg : Tile64<HD> {
   // Q, kStages x (K, V), three mbarriers, and slack to align to 1024 B
-  static constexpr int kSmem = kTileBytes * (1 + 2 * kStages) + 64 + 1024;
+  static constexpr int kSmem =
+      Tile64<HD>::kTileBytes * (1 + 2 * kStages) + 64 + 1024;
 };
-
-// A K-major operand (Q or K: 64 rows of hd, hd contiguous) for the k-step
-// kk of 16 columns: the box holding those columns, 32 bytes in per step
-// inside a swizzled row.  8-row groups are 8 * kSw bytes apart.
-template <int HD>
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
-  using C = Cfg<HD>;
-  const int col = kk * 16;
-  const uint32_t addr =
-      tile + (col / C::kCb) * C::kBoxBytes + (col % C::kCb) * 2;
-  return make_desc(addr, 16, 8 * C::kSw, C::kLayout);
-}
-
-// V as the MN-major B operand of O += P V for the k-step kk of 16 keys:
-// 16 rows of kSw bytes further per step; 8-key groups 8 * kSw bytes apart
-// (stride offset); boxes of kCb columns kBoxBytes apart (leading offset).
-template <int HD>
-__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
-  using C = Cfg<HD>;
-  return make_desc(tile + kk * 16 * C::kSw, C::kBoxBytes, 8 * C::kSw,
-                   C::kLayout);
-}
-
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&d)[HD / 2],
-                                         const uint32_t (&a)[4], uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_pv<16>(float (&d)[8],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  wgmma_rs_m64n16(d, a, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<32>(float (&d)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  wgmma_rs_m64n32(d, a, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  wgmma_rs_m64n64(d, a, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  wgmma_rs_m64n128(d, a, db);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // Issue the K and V boxes of kv tile t into stage s (one thread).
 template <int HD>
@@ -482,7 +419,7 @@ __global__ void __launch_bounds__(kThreads)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv<HD>(acc, pa[kk], desc_mnmajor<HD>(sv, kk));
+      wgmma_rs_hd<HD>(acc, pa[kk], desc_mnmajor<HD>(sv, kk));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc);
@@ -526,58 +463,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// Tensor map over a (batch, seq, head, hd) bf16 tensor with element
-// strides (sb, ss, sh), hd contiguous, as dims (hd, head, seq, batch)
-// and 64-row boxes of Cfg<HD>::kCb columns.  A dimension of size 1 gets
-// the stride it would have if packed (its stride is never used).
+// Tensor map over a (batch, seq, head, hd) bf16 tensor for 64-row boxes
+// of Cfg<HD>::kCb columns (hopper::encode_bf16_4d).
 template <int HD>
 bool encode(CUtensorMap* map, const void* ptr, int heads, int seq, int batch,
             long long sb, long long ss, long long sh) {
-  using C = Cfg<HD>;
-  EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  if (heads == 1) sh = HD;
-  if (seq == 1) ss = heads * sh;
-  if (batch == 1) sb = seq * ss;
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)heads,
-                              (cuuint64_t)seq, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)C::kCb, 1, (cuuint32_t)kBM, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swz =
-      C::kSw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-      : C::kSw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                     : CU_TENSOR_MAP_SWIZZLE_32B;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_bf16_4d(map, ptr, HD, heads, seq, batch, sb, ss, sh, kBM,
+                        Cfg<HD>::kSw);
 }
 
 template <int HD>

@@ -1,4 +1,4 @@
-// Flash attention backward for Hopper (sm_90a), on the CUDA cores.
+// Flash attention backward for Hopper (sm_90a).
 //
 // Replaces: nothing on the TPU.  The Pallas kernel
 // src/repro/kernels/flash_attention.py::flash_attention has no backward
@@ -14,19 +14,68 @@
 //
 // with lse the forward's log-sum-exp (stored by flash_attention.cu), the
 // top-left causal mask kj <= qi of the forward, and dK, dV summed over the
-// G = H / K q-heads that share a kv-head.
+// G = H / K q-heads that share a kv-head.  No atomics anywhere: every
+// output element is written once, by one thread, after sums taken in a
+// fixed order, so two runs on the same inputs give identical bits.
 //
 // What bounds it on this card: at the training shape (S = 1024, hd = 128,
 // H = 12) about 2.5 times the forward's causal operations against
-// O(S * hd * H) bytes, so operations.  This first version runs them as f32
-// FMAs on the CUDA cores, not on the tensor cores whose rate sets its
-// bound (chip_smoke.py reports both); a wgmma/TMA redesign is queued
-// (ROADMAP).
+// O(S * hd * H) bytes, so operations: the tensor cores' 989 TFLOP/s for
+// bf16.  The dK/dV and dQ launches recompute S and dP each (seven
+// products where one fused launch would take five) so that neither needs
+// atomics or a second pass over dQ.
 //
-// What the design does: the three launches each keep their working tiles
-// in shared memory in f32 (bf16 inputs converted at staging), accumulate
-// in f32 registers, and write each output element once, in the input
-// dtype, with no atomics and nothing allocated.
+// bf16: tensor cores (namespace tc below), on every head width the
+// wrapper takes (16, 32, 64, 128).
+//  (a) flash_bwd_prep: one warp per (batch, head, row) writes the pair
+//      (lse * log2 e, D) into an f32 scratch whose rows are padded to a
+//      multiple of 64 with (+inf, 0), so a padded row's P is exp2(-inf) =
+//      0 without a mask, and a 64-row tile of pairs is one aligned bulk
+//      copy.
+//  (b) flash_bwd_dkdv_tc: a block of one warpgroup owns a 64-key tile of
+//      one kv-head; its K and V tiles come in once by TMA.  Per 64-row q
+//      tile, S^T = K Q^T and dP^T = V dO^T are wgmma m64n64k16 from shared
+//      memory, both operands K-major (the forward's S = Q K^T with the
+//      roles swapped); P^T = exp2(S^T scale log2 e - lse log2 e), masked
+//      only on the diagonal tile, and dS^T = P^T (dP^T - D) stay in the
+//      accumulator's registers and are rounded to bf16 in its own fragment
+//      layout, which is wgmma's A-from-registers layout; dV += P^T dO and
+//      dK += dS^T Q are wgmma m64n{hd}k16 with dO and Q read MN-major
+//      through the transpose bit, as the forward reads V, so no tile is
+//      copied transposed.  Q, dO and the (lse, D) pairs of the q tile
+//      stream through two stages on mbarriers: the next tile is in flight
+//      while this one multiplies.  Keys past Skv need no mask (their rows
+//      of dK and dV are not stored); rows past Sq have P = 0.
+//      Work split: the G q-heads of a kv-head go to C blocks of one thread
+//      block cluster (C the largest divisor of G up to 8, the portable
+//      cluster size; each block loops over G / C heads), grid (K * C, B,
+//      key tiles) with key tile 0 (the causal tile with the most q tiles)
+//      on grid.z = 0, so the longest blocks start first.  At B = 2, K = 2,
+//      G = 6, S = 1024 that is 384 blocks for 132 SMs, the longest 16 q
+//      tiles against a mean of 8.5.  The C partial dK and dV meet through
+//      distributed shared memory: each block stages its f32 accumulators
+//      in its own (now idle) stage ring, the cluster synchronises, and
+//      block r sums pairs r, r + C, ... of all C blocks in rank order and
+//      stores them in bf16.  Nothing goes through device memory.
+//      Registers: dK and dV accumulators of 64 x hd f32 over one
+//      warpgroup are hd / 2 + hd / 2 = 128 a thread at hd = 128, S^T and
+//      dP^T 32 each: 192 live at the peak, under the 255 a thread of a
+//      128-thread block, so one warpgroup of 64 keys per block and 64-row
+//      q tiles fit without spilling (ptxas's report in _build/*.log), two
+//      blocks an SM (about 98 KB of shared memory each).
+//  (c) flash_bwd_dq_tc: a block of one warpgroup per (64-row q tile,
+//      q-head, batch row), heaviest q tiles first, as the forward: Q and
+//      dO in once by TMA, K and V streaming through two stages; S = Q K^T
+//      and dP = dO V^T from shared memory, dS in bf16 from registers, and
+//      dQ += dS K with K read MN-major.
+//  All four tiles (q, k, v, dO) come through 4-d tensor maps over the
+//  caller's (batch, seq, head) strides, so views of one fused projection
+//  are read in place; TMA's zero fill covers ragged S.  A refused copy
+//  traps through mbar_wait's timeout instead of hanging.
+//
+// f32: the CUDA-core kernels (flash_bwd_dot, flash_bwd_dkdv, flash_bwd_dq
+// below) are kept as they were: their 1e-4 gate against the plain version
+// rules out TF32 products, as for the forward.
 //  (a) one warp per (batch, head, row): D in f32 into a (B, H, Sq)
 //      scratch the wrapper allocates.
 //  (b) dK/dV: one block of 8 warps per (32-key tile, kv-head, batch row).
@@ -42,9 +91,10 @@
 //      looping over the 32-key tiles up to the diagonal, as the forward's
 //      f32 kernel does; each warp recomputes P and dS for its 8 rows and
 //      accumulates dQ with each lane owning hd/32 columns.
-// Ragged lengths are masked in the kernels: rows past Sq and keys past
-// Skv are staged as zeros and get P = 0.
+//  Ragged lengths are masked in the kernels: rows past Sq and keys past
+//  Skv are staged as zeros and get P = 0.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro_torch {
 namespace {
@@ -408,20 +458,487 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                        const void* o, const float* lse, const void* dout,
-                        void* dq, void* dk, void* dv, float* dd, int B, int H,
-                        int K, int Sq, int Skv, const long long* sp,
-                        float scale, int causal, cudaStream_t s) {
+cudaError_t dispatch_hd_f32(int hd, const void* q, const void* k,
+                            const void* v, const void* o, const float* lse,
+                            const void* dout, void* dq, void* dk, void* dv,
+                            float* dd, int B, int H, int K, int Sq, int Skv,
+                            const long long* sp, float scale, int causal,
+                            cudaStream_t s) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, lse, dout, dq, dk, dv, dd, B, H, K, Sq, Skv, sp, scale, causal, s);
-    case 32: return launch<T, 32>(q, k, v, o, lse, dout, dq, dk, dv, dd, B, H, K, Sq, Skv, sp, scale, causal, s);
-    case 64: return launch<T, 64>(q, k, v, o, lse, dout, dq, dk, dv, dd, B, H, K, Sq, Skv, sp, scale, causal, s);
-    case 128: return launch<T, 128>(q, k, v, o, lse, dout, dq, dk, dv, dd, B, H, K, Sq, Skv, sp, scale, causal, s);
+    case 16: return launch<float, 16>(q, k, v, o, lse, dout, dq, dk, dv, dd, B, H, K, Sq, Skv, sp, scale, causal, s);
+    case 32: return launch<float, 32>(q, k, v, o, lse, dout, dq, dk, dv, dd, B, H, K, Sq, Skv, sp, scale, causal, s);
+    case 64: return launch<float, 64>(q, k, v, o, lse, dout, dq, dk, dv, dd, B, H, K, Sq, Skv, sp, scale, causal, s);
+    case 128: return launch<float, 128>(q, k, v, o, lse, dout, dq, dk, dv, dd, B, H, K, Sq, Skv, sp, scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
+
+// ---------------------------------------------------------------------------
+// bf16 tensor-core kernels
+// ---------------------------------------------------------------------------
+namespace tc {
+
+using namespace hopper;
+
+constexpr int kBM = 64;          // rows of every tile: 64 keys or 64 q rows
+constexpr int kStages = 2;       // streamed tiles in flight
+constexpr int kThreads = 128;    // one warpgroup
+constexpr int kMaxCluster = 8;   // the portable cluster size
+constexpr int kPrepWarps = 8;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+struct Cfg : Tile64<HD> {
+  static constexpr int kRowBytes = kBM * 8;   // (lse log2 e, D) of 64 rows
+  // two fixed tiles, kStages x two streamed tiles, kStages x 64 (lse, D)
+  // pairs, three mbarriers, and slack to align to 1024 B
+  static constexpr int kSmem = Tile64<HD>::kTileBytes * (2 + 2 * kStages) +
+                               kStages * kRowBytes + 64 + 1024;
+};
+
+// ---- (a) (lse log2 e, D) per row, rows padded to Sqp ------------------------
+// rl[(b * H + h) * Sqp + i] = (lse * log2 e, rowsum(dO * O)) for i < Sq and
+// (+inf, 0) for Sq <= i < Sqp.
+__global__ void __launch_bounds__(kPrepWarps * 32)
+    flash_bwd_prep(const __nv_bfloat16* __restrict__ o,
+                   const __nv_bfloat16* __restrict__ dout,
+                   const float* __restrict__ lse, float2* __restrict__ rl,
+                   int H, int Sq, int Sqp, int hd, long long o_sb,
+                   long long o_ss, long long o_sh, long long d_sb,
+                   long long d_ss, long long d_sh, long long rows) {
+  const long long row =
+      (long long)blockIdx.x * kPrepWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  const int i = (int)(row % Sqp);
+  const long long bh = row / Sqp;
+  if (i >= Sq) {
+    if (lane == 0) rl[row] = make_float2(INFINITY, 0.f);
+    return;
+  }
+  const int h = (int)(bh % H);
+  const long long b = bh / H;
+  const __nv_bfloat16* orow = o + b * o_sb + i * o_ss + h * o_sh;
+  const __nv_bfloat16* drow = dout + b * d_sb + i * d_ss + h * d_sh;
+  float acc = 0.f;
+  for (int d = lane; d < hd; d += 32)
+    acc += __bfloat162float(orow[d]) * __bfloat162float(drow[d]);
+  acc = warp_sum(acc);
+  if (lane == 0) rl[row] = make_float2(lse[bh * Sq + i] * kLog2e, acc);
+}
+
+// Start the TMA loads of one 64-row tile from each of the maps ta and tb
+// at (head, row0, b) into sa and sb, completing on bar (one thread);
+// with `rows` non-null also the 64 (lse, D) pairs there into sr.
+template <int HD>
+__device__ __forceinline__ void load_tiles(const CUtensorMap* ta,
+                                           const CUtensorMap* tb,
+                                           uint32_t sa, uint32_t sb,
+                                           uint32_t bar, int head, int row0,
+                                           int b, const float2* rows,
+                                           uint32_t sr) {
+  using C = Cfg<HD>;
+  mbar_expect_tx(bar, 2 * C::kTileBytes + (rows ? C::kRowBytes : 0));
+#pragma unroll
+  for (int c = 0; c < C::kBoxes; ++c) {
+    tma_load_4d(sa + c * C::kBoxBytes, ta, bar, c * C::kCb, head, row0, b);
+    tma_load_4d(sb + c * C::kBoxBytes, tb, bar, c * C::kCb, head, row0, b);
+  }
+  if (rows != nullptr) bulk_load(sr, rows, C::kRowBytes, bar);
+}
+
+// The accumulator of a wgmma with N columns gives thread (warp w, lane l)
+// rows 16w + l/4 (registers 4j, 4j+1) and 16w + l/4 + 8 (4j+2, 4j+3),
+// columns 8j + 2(l%4) + {0, 1}.  Its registers 8kk..8kk+7 of a 64-column
+// accumulator, rounded to bf16 in pairs, are the A fragment of k-step kk
+// of a product whose depth runs along those columns.
+
+// ---- (b) dK and dV ---------------------------------------------------------
+// grid (K * C, B, key tiles), cluster (C, 1, 1), block kThreads.
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkdv_tc(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const float2* __restrict__ rl,
+                      __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, int H, int K, int Sq,
+                      int Sqp, int Skv, int nclu, float scale,
+                      float scale_log2, int causal) {
+  using C = Cfg<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  // swizzled tiles want 1024-byte alignment (the swizzle repeats there)
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sk = base, sv = base + C::kTileBytes;
+  // stage s: Q at ring + 2 s T, dO at ring + (2 s + 1) T
+  const uint32_t ring = base + 2 * C::kTileBytes;
+  const uint32_t srow = ring + 2 * kStages * C::kTileBytes;
+  const uint32_t bar_kv = srow + kStages * C::kRowBytes;
+  const uint32_t bar_st = bar_kv + 8;       // kStages barriers, 8 B each
+  const float2* rows_sm = reinterpret_cast<const float2*>(smem_raw + (srow - raw));
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int G = H / K;
+  const int kvh = blockIdx.x / nclu;
+  const int rank = (int)cluster_rank();     // == blockIdx.x % nclu
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.z * kBM;          // causal: tile 0, the longest, first
+  const int t_first = causal ? k0 / kBM : 0;
+  const int nq = (Sq + kBM - 1) / kBM - t_first;
+  const int total = (G / nclu) * nq;        // (head, q tile) pairs
+
+  // iteration n: q-head kvh G + rank + (n / nq) C, q tile t_first + n % nq
+  auto load_stage = [&](int n, int s) {
+    const int h = kvh * G + rank + (n / nq) * nclu;
+    const int q0 = (t_first + n % nq) * kBM;
+    const uint32_t sq = ring + 2 * s * C::kTileBytes;
+    load_tiles<HD>(&tq, &tdo, sq, sq + C::kTileBytes, bar_st + 8 * s, h, q0,
+                   b, rl + ((size_t)b * H + h) * Sqp + q0,
+                   srow + s * C::kRowBytes);
+  };
+
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) mbar_init(bar_st + 8 * s, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    load_tiles<HD>(&tk, &tv, sk, sv, bar_kv, kvh, k0, b, nullptr, 0);
+    for (int n = 0; n < kStages && n < total; ++n) load_stage(n, n);
+  }
+
+  float dka[HD / 2], dva[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dka[i] = dva[i] = 0.f;
+  const int krow = 16 * warp + (lane >> 2);   // keys k0 + krow, + 8
+  const int col0 = 2 * (lane & 3);
+
+  mbar_wait(bar_kv, 0);
+  for (int n = 0; n < total; ++n) {
+    const int s = n % kStages;
+    const uint32_t sq = ring + 2 * s * C::kTileBytes;
+    const uint32_t sdo = sq + C::kTileBytes;
+    mbar_wait(bar_st + 8 * s, (n / kStages) & 1);
+
+    // ---- S^T = K Q^T and dP^T = V dO^T (64 keys x 64 q rows, f32) ----
+    float st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+    fence_regs(st);
+    fence_regs(dpt);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_m64n64(st, desc_kmajor<HD>(sk, kk), desc_kmajor<HD>(sq, kk));
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_m64n64(dpt, desc_kmajor<HD>(sv, kk), desc_kmajor<HD>(sdo, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // ---- P^T and dS^T, rounded to bf16 as A fragments ----
+    // the diagonal tile (q0 == k0) is the only one the causal mask cuts
+    const bool diag = causal && (t_first + n % nq) * kBM == k0;
+    const float2* rows = rows_sm + s * kBM;
+    uint32_t pa[4][4], dsa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      // (lse, D) of q rows 8j + col0 and + 1 of the tile
+      const float4 r = *reinterpret_cast<const float4*>(rows + 8 * j + col0);
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        const float l = (e & 1) ? r.z : r.x;
+        const float d = (e & 1) ? r.w : r.y;
+        float pv = exp2f(fmaf(st[i], scale_log2, -l));
+        if (diag && krow + 8 * (e >> 1) > 8 * j + col0 + (e & 1)) pv = 0.f;
+        p[e] = pv;
+        ds[e] = pv * (dpt[i] - d);
+      }
+      pa[j >> 1][2 * (j & 1)] = pack_bf16(p[0], p[1]);
+      pa[j >> 1][2 * (j & 1) + 1] = pack_bf16(p[2], p[3]);
+      dsa[j >> 1][2 * (j & 1)] = pack_bf16(ds[0], ds[1]);
+      dsa[j >> 1][2 * (j & 1) + 1] = pack_bf16(ds[2], ds[3]);
+    }
+
+    // ---- dV += P^T dO, dK += dS^T Q (dO and Q MN-major) ----
+    fence_regs(dva);
+    fence_regs(dka);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_hd<HD>(dva, pa[kk], desc_mnmajor<HD>(sdo, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_hd<HD>(dka, dsa[kk], desc_mnmajor<HD>(sq, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dva);
+    fence_regs(dka);
+
+    // every warp is done with stage s: refill it
+    __syncthreads();
+    if (tid == 0 && n + kStages < total) load_stage(n + kStages, s);
+  }
+
+  // ---- the cluster's C partial sums, through distributed shared memory ---
+  // Each block stages its accumulators in its stage ring (every stage is
+  // consumed and none is in flight) as pairs: pair p < HD/4 holds dK's
+  // registers 2p, 2p+1, pair HD/4 + p dV's, thread-minor.
+  float2* stage = reinterpret_cast<float2*>(smem_raw + (ring - raw));
+#pragma unroll
+  for (int p = 0; p < HD / 4; ++p) {
+    stage[p * kThreads + tid] = make_float2(dka[2 * p], dka[2 * p + 1]);
+    stage[(HD / 4 + p) * kThreads + tid] =
+        make_float2(dva[2 * p], dva[2 * p + 1]);
+  }
+  cluster_sync();
+  for (int p = rank; p < HD / 2; p += nclu) {
+    const uint32_t at = ring + (uint32_t)(p * kThreads + tid) * 8u;
+    float2 sum = make_float2(0.f, 0.f);
+    for (int r = 0; r < nclu; ++r) {              // in rank order
+      const float2 v = ld_dsmem_f2(at, (uint32_t)r);
+      sum.x += v.x;
+      sum.y += v.y;
+    }
+    const bool is_k = p < HD / 4;
+    const int pp = is_k ? p : p - HD / 4;        // registers 2pp, 2pp + 1
+    const int kj = k0 + krow + 8 * (pp & 1);
+    if (kj < Skv) {
+      const float f = is_k ? scale : 1.f;
+      __nv_bfloat16* out = (is_k ? dk : dv) +
+                           (((size_t)b * Skv + kj) * K + kvh) * HD +
+                           8 * (pp >> 1) + col0;
+      *reinterpret_cast<uint32_t*>(out) = pack_bf16(sum.x * f, sum.y * f);
+    }
+  }
+  cluster_sync();   // no block leaves while another reads its stage
+}
+
+// ---- (c) dQ ---------------------------------------------------------------
+// grid (H, B, q tiles), block kThreads.
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const float2* __restrict__ rl,
+                    __nv_bfloat16* __restrict__ dq, int H, int K, int Sq,
+                    int Sqp, int Skv, float scale, float scale_log2,
+                    int causal) {
+  using C = Cfg<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base, sdo = base + C::kTileBytes;
+  // stage s: K at ring + 2 s T, V at ring + (2 s + 1) T
+  const uint32_t ring = base + 2 * C::kTileBytes;
+  const uint32_t bar_q = ring + 2 * kStages * C::kTileBytes;
+  const uint32_t bar_st = bar_q + 8;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBM;   // heaviest first
+  const int kvh = h / (H / K);
+  const int q_last = min(q0 + kBM, Sq) - 1;
+  const int kv_end = causal ? min(Skv, q_last + 1) : Skv;
+  const int ntiles = (kv_end + kBM - 1) / kBM;
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) mbar_init(bar_st + 8 * s, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    load_tiles<HD>(&tq, &tdo, sq, sdo, bar_q, h, q0, b, nullptr, 0);
+    for (int t = 0; t < kStages && t < ntiles; ++t)
+      load_tiles<HD>(&tk, &tv, ring + 2 * t * C::kTileBytes,
+                     ring + (2 * t + 1) * C::kTileBytes, bar_st + 8 * t, kvh,
+                     t * kBM, b, nullptr, 0);
+  }
+
+  const int row0 = q0 + 16 * warp + (lane >> 2);   // rows row0, row0 + 8
+  const int col0 = 2 * (lane & 3);
+  const float2* rrow = rl + ((size_t)b * H + h) * Sqp;
+  const float2 r0 = rrow[row0], r1 = rrow[row0 + 8];   // < Sqp: padded
+  const float lse2[2] = {r0.x, r1.x}, dd[2] = {r0.y, r1.y};
+
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(bar_q, 0);
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % kStages;
+    const uint32_t sk = ring + 2 * s * C::kTileBytes;
+    const uint32_t sv = sk + C::kTileBytes;
+    mbar_wait(bar_st + 8 * s, (t / kStages) & 1);
+
+    // ---- S = Q K^T and dP = dO V^T (64 q rows x 64 keys, f32) ----
+    float sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+    fence_regs(sc);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_m64n64(sc, desc_kmajor<HD>(sq, kk), desc_kmajor<HD>(sk, kk));
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_m64n64(dp, desc_kmajor<HD>(sdo, kk), desc_kmajor<HD>(sv, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // ---- dS = P (dP - D), masked on the diagonal and past Skv ----
+    const int k0 = t * kBM;
+    const bool edge = k0 + kBM > Skv || (causal && k0 + kBM - 1 > q0);
+    uint32_t dsa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float ds[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int i = 8 * kk + e;
+        const int r = (i >> 1) & 1;
+        float p = exp2f(fmaf(sc[i], scale_log2, -lse2[r]));
+        if (edge) {
+          const int kj = k0 + 8 * (i >> 2) + col0 + (i & 1);
+          if (kj >= Skv || (causal && kj > row0 + 8 * r)) p = 0.f;
+        }
+        ds[e] = p * (dp[i] - dd[r]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dsa[kk][e] = pack_bf16(ds[2 * e], ds[2 * e + 1]);
+    }
+
+    // ---- dQ += dS K (K MN-major) ----
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_hd<HD>(acc, dsa[kk], desc_mnmajor<HD>(sk, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+
+    __syncthreads();
+    if (tid == 0 && t + kStages < ntiles)
+      load_tiles<HD>(&tk, &tv, sk, sv, bar_st + 8 * s, kvh,
+                     (t + kStages) * kBM, b, nullptr, 0);
+  }
+
+  // ---- scale dQ, in bf16; dq is (B, Sq, H, hd) contiguous ----
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    if (qi >= Sq) continue;
+    __nv_bfloat16* out = dq + (((size_t)b * Sq + qi) * H + h) * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(out + 8 * j + col0) =
+          pack_bf16(acc[4 * j + 2 * r] * scale,
+                    acc[4 * j + 2 * r + 1] * scale);
+  }
+}
+
+// Tensor map over a (batch, seq, head, hd) bf16 tensor for 64-row boxes.
+template <int HD>
+bool encode(CUtensorMap* map, const void* ptr, int heads, int seq, int batch,
+            const long long* st) {
+  return encode_bf16_4d(map, ptr, HD, heads, seq, batch, st[0], st[1], st[2],
+                        kBM, Cfg<HD>::kSw);
+}
+
+template <int HD>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* o, const float* lse, const void* dout,
+                   void* dq, void* dk, void* dv, float* scratch, int B,
+                   int H, int K, int Sq, int Skv, const long long* sp,
+                   float scale, int causal, int nclu, cudaStream_t stream) {
+  using C = Cfg<HD>;
+  using bf16 = __nv_bfloat16;
+  const int Sqp = (Sq + kBM - 1) / kBM * kBM;
+  float2* rl = reinterpret_cast<float2*>(scratch);
+  const long long rows = (long long)B * H * Sqp;
+  flash_bwd_prep<<<(unsigned)((rows + kPrepWarps - 1) / kPrepWarps),
+                   kPrepWarps * 32, 0, stream>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, rl,
+      H, Sq, Sqp, HD, sp[9], sp[10], sp[11], sp[12], sp[13], sp[14], rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  // sp: (batch, seq, head) strides of q, k, v, o, dout
+  CUtensorMap tq, tk, tv, tdo;
+  if (!encode<HD>(&tq, q, H, Sq, B, sp) ||
+      !encode<HD>(&tk, k, K, Skv, B, sp + 3) ||
+      !encode<HD>(&tv, v, K, Skv, B, sp + 6) ||
+      !encode<HD>(&tdo, dout, H, Sq, B, sp + 12))
+    return cudaErrorInvalidValue;
+  const float sl2 = scale * kLog2e;
+
+  // Above 48 KB a block's shared memory has to be opted into (per kernel
+  // and device, so on every launch).
+  auto kv_kernel = flash_bwd_dkdv_tc<HD>;
+  err = cudaFuncSetAttribute(
+      kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(K * nclu, B, (Skv + kBM - 1) / kBM);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = C::kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nclu;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kv_kernel, tq, tk, tv, tdo,
+                           static_cast<const float2*>(rl),
+                           static_cast<bf16*>(dk), static_cast<bf16*>(dv), H,
+                           K, Sq, Sqp, Skv, nclu, scale, sl2, causal);
+  if (err != cudaSuccess) return err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto q_kernel = flash_bwd_dq_tc<HD>;
+  err = cudaFuncSetAttribute(
+      q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return err;
+  q_kernel<<<dim3(H, B, (Sq + kBM - 1) / kBM), kThreads, C::kSmem,
+             stream>>>(tq, tk, tv, tdo, rl, static_cast<bf16*>(dq), H, K, Sq,
+                       Sqp, Skv, scale, sl2, causal);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
+                        const void* o, const float* lse, const void* dout,
+                        void* dq, void* dk, void* dv, float* scratch, int B,
+                        int H, int K, int Sq, int Skv, const long long* sp,
+                        float scale, int causal, int nclu, cudaStream_t s) {
+  switch (hd) {
+    case 16: return launch<16>(q, k, v, o, lse, dout, dq, dk, dv, scratch, B, H, K, Sq, Skv, sp, scale, causal, nclu, s);
+    case 32: return launch<32>(q, k, v, o, lse, dout, dq, dk, dv, scratch, B, H, K, Sq, Skv, sp, scale, causal, nclu, s);
+    case 64: return launch<64>(q, k, v, o, lse, dout, dq, dk, dv, scratch, B, H, K, Sq, Skv, sp, scale, causal, nclu, s);
+    case 128: return launch<128>(q, k, v, o, lse, dout, dq, dk, dv, scratch, B, H, K, Sq, Skv, sp, scale, causal, nclu, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
 
 }  // namespace
 }  // namespace repro_torch
@@ -430,15 +947,20 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 // last dimension contiguous; strides[15] holds the (batch, seq, head)
 // element strides of q, k, v, o and dout in that order.  lse: (B, H, Sq)
 // f32 from the forward.  dq (B, Sq, H, hd), dk and dv (B, Skv, K, hd):
-// contiguous, the inputs' dtype, written whole.  dd: (B, H, Sq) f32
-// scratch.  Three launches on `stream`; returns the first cudaError_t.
+// contiguous, the inputs' dtype, written whole.  scratch: f32, (B, H, Sq)
+// for f32 and (B, H, Sqp, 2) for bf16, Sqp = Sq rounded up to 64.  bf16
+// also needs q, k, v and dout on TMA's grid (16-byte aligned, strides in
+// multiples of 8 elements) and `cluster`, the blocks that share a
+// kv-head's q-heads in the dK/dV launch: a divisor of H / K, at most 8.
+// Three launches on `stream`; returns the first cudaError_t.
 extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k,
                                    const void* v, const void* o,
                                    const float* lse, const void* dout,
-                                   void* dq, void* dk, void* dv, float* dd,
-                                   int B, int H, int K, int Sq, int Skv,
-                                   int hd, const long long* strides,
-                                   float scale, int causal, void* stream) {
+                                   void* dq, void* dk, void* dv,
+                                   float* scratch, int B, int H, int K,
+                                   int Sq, int Skv, int hd,
+                                   const long long* strides, float scale,
+                                   int causal, int cluster, void* stream) {
   using namespace repro_torch;
   if (B == 0 || Sq == 0 || Skv == 0) return cudaSuccess;
   if (B < 0 || Sq < 0 || Skv < 0 || K <= 0 || H % K != 0 || B > 65535 ||
@@ -447,12 +969,16 @@ extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat32:
-      return dispatch_hd<float>(hd, q, k, v, o, lse, dout, dq, dk, dv, dd, B,
-                                H, K, Sq, Skv, strides, scale, causal, s);
+      return dispatch_hd_f32(hd, q, k, v, o, lse, dout, dq, dk, dv, scratch,
+                             B, H, K, Sq, Skv, strides, scale, causal, s);
     case kBFloat16:
-      return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, lse, dout, dq, dk, dv,
-                                        dd, B, H, K, Sq, Skv, strides, scale,
-                                        causal, s);
+      if (cluster < 1 || cluster > tc::kMaxCluster || (H / K) % cluster != 0 ||
+          (Sq + tc::kBM - 1) / tc::kBM > 65535 ||
+          (Skv + tc::kBM - 1) / tc::kBM > 65535)
+        return cudaErrorInvalidValue;
+      return tc::dispatch_hd(hd, q, k, v, o, lse, dout, dq, dk, dv, scratch,
+                             B, H, K, Sq, Skv, strides, scale, causal,
+                             cluster, s);
     default: return cudaErrorInvalidValue;
   }
 }

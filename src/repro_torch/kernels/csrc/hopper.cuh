@@ -1,8 +1,13 @@
 // Hopper (sm_90a) building blocks written out in PTX: warpgroup matrix
 // multiplies (wgmma) with shared-memory matrix descriptors, TMA tile
-// loads completing on mbarriers.  Used by flash_attention.cu.
+// loads completing on mbarriers, the host-side tensor-map encoder, and
+// thread-block-cluster barriers and distributed shared memory.  Used by
+// flash_attention.cu and flash_attention_bwd.cu.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums (types only)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace repro_torch {
@@ -67,6 +72,47 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* tmap,
       "l"(reinterpret_cast<uint64_t>(tmap)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
       : "memory");
+}
+
+// A plain (non-tensor) bulk copy of `bytes` (a multiple of 16, both
+// addresses 16-byte aligned) from device memory into shared memory at
+// `dst`, completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// ---- thread-block clusters -------------------------------------------------
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives and waits: the
+// shared-memory writes before it are visible to the whole cluster after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Two floats at shared-memory address `addr` of this block, read from the
+// same address in the block of cluster rank `rank`.
+__device__ __forceinline__ float2 ld_dsmem_f2(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(remote)
+               : "memory");
+  return v;
 }
 
 // ---- wgmma ---------------------------------------------------------------
@@ -212,6 +258,125 @@ __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ---- 64-row bf16 tiles, as TMA lays them down ---------------------------
+// A tile is 64 rows of hd bf16 columns, loaded as hd / kCb boxes of kCb
+// columns, each box 64 rows of kSw bytes in the kSw-byte swizzle, boxes
+// kBoxBytes apart.
+template <int HD>
+struct Tile64 {
+  // Swizzle span in bytes: a row of a box is hd * 2 bytes, at most 128.
+  static constexpr int kSw = HD * 2 >= 128 ? 128 : HD * 2;
+  static constexpr int kCb = kSw / 2;            // columns of one TMA box
+  static constexpr int kBoxes = HD / kCb;        // boxes per 64-row tile
+  static constexpr int kBoxBytes = 64 * kSw;
+  static constexpr int kTileBytes = 64 * HD * 2;
+  static constexpr uint64_t kLayout = kSw == 128 ? 1 : kSw == 64 ? 2 : 3;
+};
+
+// A tile as a K-major operand (the product's depth along hd, which is
+// contiguous) for the k-step kk of 16 columns: the box holding those
+// columns, 32 bytes in per step inside a swizzled row.  8-row groups are
+// 8 * kSw bytes apart.
+template <int HD>
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int kk) {
+  using C = Tile64<HD>;
+  const int col = kk * 16;
+  const uint32_t addr =
+      tile + (col / C::kCb) * C::kBoxBytes + (col % C::kCb) * 2;
+  return make_desc(addr, 16, 8 * C::kSw, C::kLayout);
+}
+
+// A tile as the MN-major B operand of a product whose depth runs along
+// its 64 rows (V in P V, or any tile read through the transpose bit), for
+// the k-step kk of 16 rows: 16 rows of kSw bytes further per step; 8-row
+// groups 8 * kSw bytes apart (stride offset); boxes of kCb columns
+// kBoxBytes apart (leading offset).
+template <int HD>
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int kk) {
+  using C = Tile64<HD>;
+  return make_desc(tile + kk * 16 * C::kSw, C::kBoxBytes, 8 * C::kSw,
+                   C::kLayout);
+}
+
+// D (64 x HD, f32) += A (64 x 16, bf16, registers) * B (16 x HD, an
+// MN-major tile): the wgmma of width HD.
+template <int HD>
+__device__ __forceinline__ void wgmma_rs_hd(float (&d)[HD / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  if constexpr (HD == 16) wgmma_rs_m64n16(d, a, db);
+  else if constexpr (HD == 32) wgmma_rs_m64n32(d, a, db);
+  else if constexpr (HD == 64) wgmma_rs_m64n64(d, a, db);
+  else wgmma_rs_m64n128(d, a, db);
+}
+
+// Two floats as a bf16 pair (round to nearest even), lo in the low half:
+// one register of a wgmma A fragment.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ---- tensor maps (host) ---------------------------------------------------
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime so that the
+// library links against the runtime alone; null where it is missing.
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Tensor map over a (batch, seq, head, hd) bf16 tensor with element
+// strides (sb, ss, sh), hd contiguous, as dims (hd, head, seq, batch),
+// with boxes of `box_rows` rows of `swizzle` bytes (the swizzle span:
+// 128, 64 or 32).  A dimension of size 1 gets the stride it would have
+// if packed (its stride is never used).  False if the encoder is missing
+// or refuses the map.
+inline bool encode_bf16_4d(CUtensorMap* map, const void* ptr, int hd,
+                           int heads, int seq, int batch, long long sb,
+                           long long ss, long long sh, int box_rows,
+                           int swizzle) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  if (heads == 1) sh = hd;
+  if (seq == 1) ss = heads * sh;
+  if (batch == 1) sb = seq * ss;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                              (cuuint64_t)seq, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)(swizzle / 2), 1,
+                             (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz =
+      swizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                      : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

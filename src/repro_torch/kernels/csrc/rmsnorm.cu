@@ -43,13 +43,26 @@
 //                                 mode, where x is the h the forward wrote)
 //   dw = sum over rows of dy x r.
 // Bytes bound it, as the forward: x, dy (and dh) read once, dx written
-// once.  A block walks rows blockIdx.x, blockIdx.x + gridDim.x, ... (at
-// most two blocks per SM); each thread keeps its packs of the row in
-// registers between the two row sums (one shared-memory step for both)
-// and the output, and accumulates dw for its own columns across its rows
-// in registers.  dw leaves as one f32 row of partials per block, summed
-// in a fixed order by a second small launch and cast to w's dtype:
-// deterministic, no atomics.
+// once.  What kept it from its bound was latency: a block per row paid a
+// block-wide barrier for every row with one 16-byte pack a thread in
+// flight, and the dw sum ran on a handful of SMs.  So, for rows that
+// fit (16-byte aligned, at most 6 packs a lane: d <= 1536 in bf16, 768
+// in f32):
+//  (1) rmsnorm_bwd_rows: one warp per row, 8 warps a block, one block an
+//      SM (a grid of at most the SM count, each warp walking its rows).
+//      A lane loads all its packs of x and dy (and dh) at once, so a warp
+//      has its whole row in flight (6 KB at d = 1536 in bf16, 48 KB an
+//      SM); both row sums are warp shuffles, with no barrier.  Each warp
+//      keeps dw for its lanes' columns in registers across its rows; the
+//      block's 8 warps add theirs in a fixed tree through shared memory,
+//      and the block writes one f32 row of partials.
+//  (2) rmsnorm_bwd_dw: one block of 32 warps per 32 columns; warp w sums
+//      partial rows w, w + 32, ... (lane = column), and warp 0 adds the
+//      32 warp sums in order, then casts to w's dtype.
+// Wider or unaligned rows keep the block-per-row kernel
+// (rmsnorm_bwd_kernel), which walks rows blockIdx.x, blockIdx.x +
+// gridDim.x, ... and writes its partial rows the same way.  Every sum is
+// taken in a fixed order: deterministic, no atomics.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -298,16 +311,133 @@ __global__ void __launch_bounds__(kBwdThreads)
   }
 }
 
-// dw[col] = the sum of the nblk partial rows at col, in block order.
+// One warp per row: see (1) in the header.  NP packs of VEC a lane.
+constexpr int kRowWarps = 8;
+
+// One block an SM: a lane holds up to 6 packs each of x, dy and dh and 6
+// VEC dw sums, which at 128 registers (two blocks an SM) spill.
+template <typename T, int VEC, int NP, bool RESID>
+__global__ void __launch_bounds__(kRowWarps * 32, 1)
+    rmsnorm_bwd_rows(const T* __restrict__ x, const T* __restrict__ w,
+                     const T* __restrict__ dy, const T* __restrict__ dh,
+                     T* __restrict__ dx, float* __restrict__ partial,
+                     int rows, int d, float eps) {
+  using P = Pack<T, VEC>;
+  // the tree's upper halves, column (k VEC + j) 32 + lane: conflict free
+  __shared__ float red[kRowWarps / 2][NP * VEC * 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nvec = d / VEC;
+  const float inv_d = 1.f / (float)d;
+  const P* wr = reinterpret_cast<const P*>(w);
+  float dw[NP][VEC];
+#pragma unroll
+  for (int k = 0; k < NP; ++k)
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) dw[k][j] = 0.f;
+
+  for (int row = blockIdx.x * kRowWarps + warp; row < rows;
+       row += gridDim.x * kRowWarps) {
+    const size_t off = (size_t)row * d;
+    const P* xr = reinterpret_cast<const P*>(x + off);
+    const P* dyr = reinterpret_cast<const P*>(dy + off);
+    P xp[NP], dp[NP], hp[NP];
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      const int i = lane + 32 * k;
+      if (i < nvec) {
+        xp[k] = xr[i];
+        dp[k] = dyr[i];
+        if constexpr (RESID) hp[k] = reinterpret_cast<const P*>(dh + off)[i];
+      }
+    }
+    float sxx = 0.f, sgx = 0.f;
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      const int i = lane + 32 * k;
+      if (i < nvec) {
+        const P wp = wr[i];
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float xf = to_f32(xp[k].v[j]);
+          sxx += xf * xf;
+          sgx += to_f32(dp[k].v[j]) * to_f32(wp.v[j]) * xf;
+        }
+      }
+    }
+    sxx = warp_sum(sxx);
+    sgx = warp_sum(sgx);
+    const float r = rsqrtf(sxx * inv_d + eps);
+    const float c = r * r * r * sgx * inv_d;
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      const int i = lane + 32 * k;
+      if (i < nvec) {
+        const P wp = wr[i];
+        P op;
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float xf = to_f32(xp[k].v[j]), df = to_f32(dp[k].v[j]);
+          float g = r * df * to_f32(wp.v[j]) - xf * c;
+          if constexpr (RESID) g += to_f32(hp[k].v[j]);
+          op.v[j] = from_f32<T>(g);
+          dw[k][j] += df * xf * r;
+        }
+        reinterpret_cast<P*>(dx + off)[i] = op;
+      }
+    }
+  }
+
+  // warp w += warp w + half, for half = 4, 2, 1: a fixed order
+#pragma unroll
+  for (int half = kRowWarps / 2; half > 0; half >>= 1) {
+    if (warp >= half && warp < 2 * half)
+#pragma unroll
+      for (int k = 0; k < NP; ++k)
+#pragma unroll
+        for (int j = 0; j < VEC; ++j)
+          red[warp - half][(k * VEC + j) * 32 + lane] = dw[k][j];
+    __syncthreads();
+    if (warp < half)
+#pragma unroll
+      for (int k = 0; k < NP; ++k)
+#pragma unroll
+        for (int j = 0; j < VEC; ++j)
+          dw[k][j] += red[warp][(k * VEC + j) * 32 + lane];
+    __syncthreads();
+  }
+  if (warp == 0) {
+    float* part = partial + (size_t)blockIdx.x * d;
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      const int i = lane + 32 * k;
+      if (i < nvec)
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) part[i * VEC + j] = dw[k][j];
+    }
+  }
+}
+
+// dw[col] = the sum of the nblk partial rows at col: see (2) in the header.
+constexpr int kDwWarps = 32;
+
 template <typename T>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kDwWarps * 32)
     rmsnorm_bwd_dw(const float* __restrict__ partial, T* __restrict__ dw,
                    int nblk, int d) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= d) return;
-  float sum = 0.f;
-  for (int b = 0; b < nblk; ++b) sum += partial[(size_t)b * d + col];
-  dw[col] = from_f32<T>(sum);
+  __shared__ float sums[kDwWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int col = blockIdx.x * 32 + lane;
+  float s = 0.f;
+  if (col < d)
+    for (int b = warp; b < nblk; b += kDwWarps) s += partial[(size_t)b * d + col];
+  sums[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && col < d) {
+    float t = 0.f;
+#pragma unroll 8
+    for (int i = 0; i < kDwWarps; ++i) t += sums[i][lane];
+    dw[col] = from_f32<T>(t);
+  }
 }
 
 bool aligned16(const void* p) {
@@ -410,6 +540,29 @@ cudaError_t launch_bwd_vec(const T* x, const T* w, const T* dy, const T* dh,
   return cudaGetLastError();
 }
 
+template <typename T, int NP, bool RESID>
+void launch_rows(const T* x, const T* w, const T* dy, const T* dh, T* dx,
+                 float* partial, int rows, int d, float eps, int nblk,
+                 cudaStream_t stream) {
+  rmsnorm_bwd_rows<T, 16 / sizeof(T), NP, RESID>
+      <<<nblk, kRowWarps * 32, 0, stream>>>(x, w, dy, dh, dx, partial, rows,
+                                            d, eps);
+}
+
+template <typename T, bool RESID>
+void launch_rows_np(int np, const T* x, const T* w, const T* dy, const T* dh,
+                    T* dx, float* partial, int rows, int d, float eps,
+                    int nblk, cudaStream_t stream) {
+  if (np <= 1)
+    launch_rows<T, 1, RESID>(x, w, dy, dh, dx, partial, rows, d, eps, nblk, stream);
+  else if (np <= 2)
+    launch_rows<T, 2, RESID>(x, w, dy, dh, dx, partial, rows, d, eps, nblk, stream);
+  else if (np <= 4)
+    launch_rows<T, 4, RESID>(x, w, dy, dh, dx, partial, rows, d, eps, nblk, stream);
+  else
+    launch_rows<T, 6, RESID>(x, w, dy, dh, dx, partial, rows, d, eps, nblk, stream);
+}
+
 template <typename T>
 cudaError_t launch_bwd(const void* x, const void* w, const void* dy,
                        const void* dh, void* dx, void* dw, float* partial,
@@ -424,19 +577,36 @@ cudaError_t launch_bwd(const void* x, const void* w, const void* dy,
   const bool vec = d % kVec == 0 && aligned16(x) && aligned16(w) &&
                    aligned16(dy) && aligned16(dx) &&
                    (dh == nullptr || aligned16(dh));
+  const int np = (d / kVec + 31) / 32;        // packs a lane, a warp a row
   cudaError_t err;
-  if (dh != nullptr)
+  if (vec && np <= 6) {
+    // a warp a row: one block an SM, at most one per kRowWarps rows
+    int sms = 0;
+    err = sm_count(&sms);
+    if (err != cudaSuccess) return err;
+    const int warp_blocks = (rows + kRowWarps - 1) / kRowWarps;
+    nblk = nblk < warp_blocks ? nblk : warp_blocks;
+    nblk = nblk < sms ? nblk : sms;
+    if (dh != nullptr)
+      launch_rows_np<T, true>(np, xt, wt, dyt, dht, dxt, partial, rows, d,
+                              eps, nblk, stream);
+    else
+      launch_rows_np<T, false>(np, xt, wt, dyt, dht, dxt, partial, rows, d,
+                               eps, nblk, stream);
+    err = cudaGetLastError();
+  } else if (dh != nullptr) {
     err = vec ? launch_bwd_vec<T, kVec, true>(xt, wt, dyt, dht, dxt, partial,
                                               rows, d, eps, nblk, stream)
               : launch_bwd_vec<T, 1, true>(xt, wt, dyt, dht, dxt, partial,
                                            rows, d, eps, nblk, stream);
-  else
+  } else {
     err = vec ? launch_bwd_vec<T, kVec, false>(xt, wt, dyt, dht, dxt, partial,
                                                rows, d, eps, nblk, stream)
               : launch_bwd_vec<T, 1, false>(xt, wt, dyt, dht, dxt, partial,
                                             rows, d, eps, nblk, stream);
+  }
   if (err != cudaSuccess) return err;
-  rmsnorm_bwd_dw<T><<<(d + 255) / 256, 256, 0, stream>>>(
+  rmsnorm_bwd_dw<T><<<(d + 31) / 32, kDwWarps * 32, 0, stream>>>(
       partial, static_cast<T*>(dw), nblk, d);
   return cudaGetLastError();
 }
@@ -447,7 +617,8 @@ cudaError_t launch_bwd(const void* x, const void* w, const void* dy,
 // x, dy, dx: (rows, d) contiguous; w, dw: (d,); dh: null (the plain
 // norm) or (rows, d) contiguous (residual mode: x is the forward's h and
 // dx = dh + the norm's input gradient); all of one dtype.  partial:
-// (nblk, d) f32 scratch, 1 <= nblk <= rows: the grid of the first launch,
+// (nblk, d) f32 scratch, 1 <= nblk <= rows: at most the grid of the first
+// launch (the warp-per-row kernel takes at most one block per 8 rows),
 // whose blocks each write one row of dw partials that the second launch
 // sums.  Two launches on `stream`; returns the first cudaError_t.
 extern "C" int rmsnorm_bwd(int dtype, const void* x, const void* w,

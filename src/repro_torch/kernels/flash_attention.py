@@ -9,8 +9,11 @@ Q K^T and P V as wgmma with f32 accumulation, K/V tiles brought in by TMA
 through tensor maps over the tensors' own strides.  f32 keeps the
 CUDA-core kernel (its 2e-5 gate rules out TF32).  Asked for, it also
 stores each row's log-sum-exp, which the backward reads.  The backward
-(no TPU counterpart: the JAX package differentiates plain jnp) runs on
-the CUDA cores in three launches.  The design notes are at the top of the
+(no TPU counterpart: the JAX package differentiates plain jnp) takes
+three launches; in bf16 its dK/dV and dQ launches run every product as
+wgmma on tiles brought in by TMA, the G q-heads of a kv-head split over
+the blocks of a thread-block cluster that sum their partial dK and dV
+through distributed shared memory; f32 keeps the CUDA-core kernels.  The design notes are at the top of the
 sources.  This module checks what the kernels take and raises on
 anything else; it never copies q, k or v.  The public wrappers with the
 launch counters are ``ops.flash_attention`` and
@@ -27,6 +30,8 @@ from . import build
 
 HEAD_DIMS = (16, 32, 64, 128)        # template instantiations in the sources
 TMA_ALIGN = 16                       # bytes: TMA's base and stride granule
+TILE = 64                            # rows of the bf16 kernels' tiles
+MAX_CLUSTER = 8                      # the portable thread-block cluster size
 
 _SIGNATURES = {
     "flash_attention_fwd": (
@@ -38,7 +43,7 @@ _BWD_SIGNATURES = {
     "flash_attention_bwd": (
         [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
-           ctypes.c_void_p], ctypes.c_int),
+           ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
 }
 
 
@@ -109,9 +114,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``lse`` (B,H,Sq) f32: the arithmetic of
     ``ref.flash_attention_bwd_ref``, three launches.  q, k, v as the
     forward takes them (any (batch, seq, head) strides, last dim
-    contiguous; no TMA here, so no alignment rule); o and do of q's shape
-    and dtype; do is made contiguous (a copy only if it is not).  dq, dk
-    and dv come back contiguous, in q's dtype."""
+    contiguous; bf16 also on TMA's grid, ``check_tma_operands``); o and do
+    of q's shape and dtype; do is made contiguous (a copy only if it is
+    not, or if it does not start on TMA's 16-byte grid).  dq, dk and dv
+    come back contiguous, in q's dtype."""
     _check_qkv(q, k, v, causal, "flash_attention_bwd")
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
@@ -133,37 +139,63 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 torch.zeros(k.shape, dtype=k.dtype, device=k.device),
                 torch.zeros(v.shape, dtype=v.dtype, device=v.device))
     do = do.contiguous()
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        if max(_tiles(Sq), _tiles(Skv)) > 65535:    # tiles on grid.z
+            raise ValueError(f"bf16 flash_attention_bwd kernel takes Sq and "
+                             f"Skv <= {65535 * TILE}, got {Sq}, {Skv}")
+        if do.data_ptr() % TMA_ALIGN:
+            do = do.clone()
+        check_tma_operands(q, k, v, do)
+        # (lse log2 e, D) per row, rows padded to whole tiles
+        scratch = torch.empty((B, H, _tiles(Sq) * TILE, 2),
+                              dtype=torch.float32, device=q.device)
+    else:
+        scratch = torch.empty((B, H, Sq), dtype=torch.float32,
+                              device=q.device)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    dd = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 15)(*[
         s for t in (q, k, v, o, do) for s in t.stride()[:3]])
     lib = build.load("flash_attention_bwd", _BWD_SIGNATURES)
     err = lib.flash_attention_bwd(
         build.DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), dd.data_ptr(), B, H, K, Sq, Skv, hd,
-        strides, 1.0 / math.sqrt(hd), int(causal),
+        dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), B, H, K, Sq, Skv,
+        hd, strides, 1.0 / math.sqrt(hd), int(causal),
+        dkdv_cluster(H // K) if bf16 else 1,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, "flash_attention_bwd launch")
     return dq, dk, dv
 
 
+def _tiles(n: int) -> int:
+    return (n + TILE - 1) // TILE
+
+
+def dkdv_cluster(G: int) -> int:
+    """Blocks of one thread-block cluster that share a kv-head's G
+    q-heads in the bf16 dK/dV launch: the largest divisor of G up to
+    MAX_CLUSTER; each block loops over G / C of the heads."""
+    return max(c for c in range(1, min(G, MAX_CLUSTER) + 1) if G % c == 0)
+
+
 def check_tma_operands(*tensors: torch.Tensor) -> None:
-    """The bf16 kernel reads q, k, v through TMA tensor maps: each base
-    pointer 16-byte aligned, and each (batch, seq, head) stride of a
-    dimension longer than 1 positive and a multiple of 16 bytes (8 bf16
-    elements).  Raises ValueError otherwise."""
-    for name, t in zip("qkv", tensors):
+    """The bf16 kernels read q, k, v (and, in the backward, do) through
+    TMA tensor maps: each base pointer 16-byte aligned, and each (batch,
+    seq, head) stride of a dimension longer than 1 positive and a
+    multiple of 16 bytes (8 bf16 elements).  Raises ValueError
+    otherwise."""
+    for name, t in zip(("q", "k", "v", "do"), tensors):
         if t.data_ptr() % TMA_ALIGN:
-            raise ValueError(f"bf16 flash_attention kernel takes {name} "
+            raise ValueError(f"bf16 flash attention kernels take {name} "
                              f"16-byte aligned (TMA), got address "
                              f"{t.data_ptr():#x}")
         for size, stride in zip(t.shape[:3], t.stride()[:3]):
             if size > 1 and (stride <= 0
                              or stride * t.element_size() % TMA_ALIGN):
                 raise ValueError(
-                    f"bf16 flash_attention kernel takes {name} strides over "
+                    f"bf16 flash attention kernels take {name} strides over "
                     f"(batch, seq, head) in positive multiples of 16 bytes "
                     f"(TMA), got {t.stride()}")

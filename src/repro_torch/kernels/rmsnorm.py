@@ -6,11 +6,12 @@ row reads the row once and writes it once, and two optional operands
 fuse the op in front of the norm (the residual add, or Mamba2's gate)
 into the same launch (the design note is at the top of the source).
 The same source holds the backward of the plain and the residual form
-(``rmsnorm_bwd``: two launches, the second summing the first's per-block
-dw partials).  This module checks what the kernels take and raises on
-anything else; the public wrappers with the launch counters are
-``ops.rmsnorm``, ``ops.add_rmsnorm``, ``ops.gated_rmsnorm``,
-``ops.rmsnorm_bwd`` and ``ops.add_rmsnorm_bwd``.
+(``rmsnorm_bwd``: two launches, a warp per row where the row fits its
+registers, then the sum of the first launch's per-block dw partials).
+This module checks what the kernels take and raises on anything else;
+the public wrappers with the launch counters are ``ops.rmsnorm``,
+``ops.add_rmsnorm``, ``ops.gated_rmsnorm``, ``ops.rmsnorm_bwd`` and
+``ops.add_rmsnorm_bwd``.
 """
 from __future__ import annotations
 
@@ -29,7 +30,9 @@ _SIGNATURES = {
                     + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p],
                     ctypes.c_int),
 }
-BWD_BLOCKS_PER_SM = 2       # the backward's grid: at most this many per SM
+# the block-per-row backward's grid: at most this many blocks an SM (the
+# warp-per-row kernel takes at most one)
+BWD_BLOCKS_PER_SM = 2
 
 
 def _launch(x, w, eps, r=None, z=None):

@@ -11,8 +11,9 @@ rounds the probabilities to bf16 before P V, and the output once); SSD
 and the f32 mamba prefill 1e-4 (tests/test_kernels.py's for the SSD
 kernel, whose 3xTF32 products keep f32's accuracy).  The backward
 kernels: f32 atol 1e-4 / rtol 1e-4 (sums of up to G * S products in
-another order), bf16 3e-2 (one rounding of each output, as the plain
-version); the forward's log-sum-exp atol 1e-4 / rtol 1e-4; model
+another order), bf16 3e-2 (P and dS rounded to bf16 before their
+products, as the forward rounds P, and one rounding of each output); the
+forward's log-sum-exp atol 1e-4 / rtol 1e-4; model
 gradients per leaf within 1e-4 of the leaf's max |g| (f32)."""
 import numpy as np
 import pytest
@@ -481,7 +482,14 @@ BWD_F32 = dict(atol=1e-4, rtol=1e-4)
     (1, 995, 995, 12, 2, 128, True), (1, 1, 1, 12, 2, 128, True),
     (2, 100, 100, 4, 2, 16, True), (2, 65, 65, 4, 4, 32, True),
     (1, 77, 77, 6, 1, 64, True), (2, 50, 130, 4, 2, 128, False),
-    (1, 130, 33, 6, 3, 32, False)])
+    (1, 130, 33, 6, 3, 32, False),
+    # G = 1, 3, 8 and every head width (the bf16 dK/dV launch's cluster
+    # is the largest divisor of G up to 8: G = 12 loops over 2 heads a
+    # block, G = 11 over all 11 in one block)
+    (1, 200, 200, 3, 3, 16, True), (2, 129, 129, 3, 1, 32, True),
+    (1, 150, 150, 8, 1, 64, True), (1, 257, 257, 16, 2, 128, True),
+    (1, 300, 300, 12, 1, 32, True), (1, 70, 70, 11, 1, 64, True),
+    (2, 64, 100, 8, 1, 16, False)])
 def test_flash_bwd_kernel_matches_plain(cuda, dtype, B, Sq, Skv, H, K, hd,
                                         causal):
     """The forward's LSE and the backward kernel against the plain
@@ -522,8 +530,48 @@ def test_flash_bwd_kernel_takes_strided_heads(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_kernel_is_deterministic(cuda, dtype):
+    """No atomics: two runs at qwen2-1.5b's training shape give the same
+    bits (the bf16 dK/dV sum over a cluster's blocks in rank order)."""
+    B, S, H, K, hd = 2, 1024, 12, 2, 128
+    dt = getattr(torch, dtype)
+    q = _rand((B, S, H, hd), 80, dt, cuda)
+    k, v = _rand((B, S, K, hd), 81, dt, cuda), _rand((B, S, K, hd), 82, dt,
+                                                     cuda)
+    do = _rand((B, S, H, hd), 83, dt, cuda)
+    from repro_torch.kernels import flash_attention as fa
+    o, lse = fa.flash_attention(q, k, v, with_lse=True)
+    a = ops.flash_attention_bwd(q, k, v, o, lse, do)
+    b = ops.flash_attention_bwd(q, k, v, o, lse, do)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_flash_bwd_bf16_kernel_takes_strided_heads_and_refuses_misaligned(
+        cuda):
+    """bf16 q/k/v as views of one fused projection go through TMA in
+    place; a view 8 bytes off TMA's grid raises instead of being copied."""
+    B, S, H, K, hd = 2, 70, 4, 2, 64
+    fused = _rand((B, S, (H + 2 * K) * hd), 84, torch.bfloat16, cuda)
+    q, k, v = fused.split([H * hd, K * hd, K * hd], dim=-1)
+    q, k, v = (q.view(B, S, H, hd), k.view(B, S, K, hd), v.view(B, S, K, hd))
+    do = _rand((B, H, S, hd), 85, torch.bfloat16, cuda).transpose(1, 2)
+    from repro_torch.kernels import flash_attention as fa
+    o, lse = fa.flash_attention(q, k, v, with_lse=True)
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do)
+    for g, w in zip(got, ref.flash_attention_bwd_ref(q, k, v, o, lse, do)):
+        _assert_close(g, w, BF16)
+    wide = _rand((B, S, H * hd + 4), 86, torch.bfloat16, cuda)
+    q_off = wide[..., 4:].reshape(B, S, H, hd)       # 8 bytes in
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention_bwd(q_off, k, v, o, lse, do)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("rows,d", [(2048, 1536), (1, 1536), (995, 2048),
-                                    (3, 100), (4, 8960), (300, 64)])
+                                    (3, 100), (4, 8960), (300, 64),
+                                    (2047, 1536), (1, 2048), (2047, 2048)])
 @pytest.mark.parametrize("residual", [False, True])
 def test_rmsnorm_bwd_kernel_matches_plain(cuda, dtype, rows, d, residual):
     dt = getattr(torch, dtype)
@@ -546,6 +594,35 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda, dtype, rows, d, residual):
     assert got[0].dtype == dt and got[1].dtype == dt
     _assert_close(got[0], want[0], tol)
     # dw is a sum over the rows: atol relative to its largest element
+    scale = float(want[1].float().abs().max())
+    _assert_close(got[1], want[1], dict(atol=tol["atol"] * max(1.0, scale),
+                                        rtol=tol["rtol"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("residual", [False, True])
+def test_rmsnorm_bwd_kernel_takes_unaligned_views(cuda, dtype, residual):
+    """Contiguous operands that start one element past a 16-byte boundary
+    take the scalar path."""
+    rows, d = 37, 1536
+    dt = getattr(torch, dtype)
+
+    def off_grid(seed):
+        buf = _rand((rows * d + 1,), seed, dt, cuda)
+        return buf[1:].view(rows, d)
+    x, dy = off_grid(90), off_grid(91)
+    w = (1 + 0.1 * _rand((d,), 92, torch.float32, cuda)).to(dt)
+    tol = BWD_F32 if dtype == "float32" else BF16
+    if residual:
+        dh = off_grid(93)
+        got = ops.add_rmsnorm_bwd(x, w, dy, dh)
+        want = ref.add_rmsnorm_bwd_ref(x, w, dy, dh)
+    else:
+        got = ops.rmsnorm_bwd(x, w, dy)
+        want = ref.rmsnorm_bwd_ref(x, w, dy)
+    torch.cuda.synchronize()
+    _assert_close(got[0], want[0], tol)
     scale = float(want[1].float().abs().max())
     _assert_close(got[1], want[1], dict(atol=tol["atol"] * max(1.0, scale),
                                         rtol=tol["rtol"]))

@@ -9,6 +9,12 @@ the card (tests/test_torch_cuda.py, chip_smoke.py phase 2):
   P V (the A operand of the second wgmma), with Q K^T and P V summed in
   f32 over 64-key tiles and an online softmax, holds the bf16 tolerance
   3e-2 at qwen2-1.5b's heads;
+* its backward, bf16: S, dP in f32 from bf16 operands, P and dS rounded
+  to bf16 before dV = P^T dO, dK = dS^T Q and dQ = dS K (the A operands
+  from registers), f32 sums, holds 3e-2 against ``jax.vjp`` of the
+  reference attention; the dK/dV launch's work split, as the kernel
+  computes it from its block index, covers every causal tile pair once
+  and fills the card;
 * the SSD chunk with every product in 3xTF32 (a = hi + lo, both TF32;
   a b = lo_a hi_b + hi_a lo_b + hi_a hi_b, summed in f32) holds the SSD
   kernel's 1e-4 at mamba2-1.3b's head width, while a single TF32 product
@@ -18,16 +24,19 @@ TF32 is emulated by zeroing the 13 low mantissa bits of an f32 through
 an int32 view (the tensor cores read an f32 register that way); the
 kernel rounds to nearest instead (cvt.rna), which is no less exact.
 Inputs come from a numpy seed and go to both frameworks."""
+import collections
 import math
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
 
 BF16 = dict(atol=3e-2, rtol=3e-2)
 SSD_TOL = dict(atol=1e-4, rtol=1e-4)     # tests/test_kernels.py's
@@ -111,6 +120,36 @@ def flash_bf16_p(q, k, v, causal=True):
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).bfloat16()
 
 
+def flash_bwd_bf16(q, k, v, o, lse, do, causal=True):
+    """The bf16 backward kernels' arithmetic: q, k, v, o, do bf16, lse
+    f32 -> (dq, dk, dv) bf16.  D = rowsum(dO O), S = Q K^T and dP = dO V^T
+    in f32; P = exp2(S scale log2 e - lse log2 e) under the top-left mask;
+    dS = P (dP - D) from the f32 P; then P and dS rounded to bf16 before
+    the three products, which sum in f32; each output rounded once."""
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(hd)
+    log2e = 1.4426950408889634
+    grp = (lambda t: t.float().reshape(B, Sq, K, G, hd))
+    qg, og, dog = grp(q), grp(o), grp(do)
+    kf, vf = k.float(), v.float()
+    d = (dog * og).sum(-1).permute(0, 2, 3, 1)              # (B,K,G,Sq)
+    lse2 = (lse.float() * log2e).reshape(B, K, G, Sq)
+    s = torch.einsum("bskgh,btkh->bkgst", qg, kf)
+    p = torch.exp2(s * (scale * log2e) - lse2[..., None])
+    if causal:
+        p = p.masked_fill(~torch.ones(Sq, Skv, dtype=torch.bool).tril(), 0.0)
+    dp = torch.einsum("bskgh,btkh->bkgst", dog, vf)
+    ds = p * (dp - d[..., None])
+    p16, ds16 = p.bfloat16().float(), ds.bfloat16().float()
+    dv = torch.einsum("bkgst,bskgh->btkh", p16, dog)
+    dk = torch.einsum("bkgst,bskgh->btkh", ds16, qg) * scale
+    dq = torch.einsum("bkgst,btkh->bskgh", ds16, kf) * scale
+    return (dq.reshape(B, Sq, H, hd).bfloat16(), dk.bfloat16(),
+            dv.bfloat16())
+
+
 def _ssd_inputs(R, H, Q, P, N, seed):
     """x, dt, cs, Bm, Cm as tests/test_kernels.py draws them."""
     x = _rand((R, H, Q, P), seed)
@@ -143,6 +182,104 @@ def test_flash_with_bf16_probabilities_holds_bf16_tolerance(S):
         *(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)))
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want.astype(jnp.float32)), **BF16)
+
+
+# ---------------------------------------------------------------------------
+# the flash backward with P and dS in bf16, and its work split
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal", [
+    (1, 64, 64, 2, 2, 16, True),          # G = 1
+    (2, 77, 77, 4, 2, 64, True),          # G = 2, ragged S
+    (1, 130, 130, 12, 2, 128, True),      # qwen2-1.5b's heads, G = 6
+    (1, 77, 77, 6, 1, 16, True),          # G = 6
+    (2, 64, 64, 6, 3, 128, True),         # G = 2
+    (1, 130, 130, 3, 3, 64, True),        # G = 1, ragged S
+    (1, 200, 200, 6, 1, 64, True),        # G = 6, four 64-row tiles
+    (1, 50, 130, 4, 2, 128, False),       # non-causal, ragged Skv
+    (2, 130, 33, 6, 1, 16, False)])       # non-causal, Skv < Sq
+def test_flash_bwd_with_bf16_p_and_ds_holds_bf16_tolerance(B, Sq, Skv, H, K,
+                                                           hd, causal):
+    """The emulated kernels against jax.vjp of the JAX package's
+    reference attention on the same bf16-rounded inputs, in f32."""
+    arrs = [_rand(shape, seed) for shape, seed in (
+        ((B, Sq, H, hd), 11), ((B, Skv, K, hd), 12), ((B, Skv, K, hd), 13),
+        ((B, Sq, H, hd), 14))]
+    q, k, v, do = (torch.from_numpy(a).bfloat16() for a in arrs)
+    # the forward's outputs as the card's forward gives them: o in bf16
+    # from P in bf16, lse in f32
+    o = (flash_bf16_p(q, k, v, causal) if causal else
+         tref.flash_attention_ref(q, k, v, causal=False))
+    lse = tref.flash_attention_lse_ref(q, k, v, causal)
+    got = flash_bwd_bf16(q, k, v, o, lse, do, causal)
+    f32 = [jnp.asarray(t.float().numpy()) for t in (q, k, v, do)]
+    _, vjp = jax.vjp(lambda a, b, c: jref.flash_attention_ref(a, b, c, causal),
+                     *f32[:3])
+    for g, w in zip(got, vjp(f32[3])):
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(w), **BF16)
+
+
+def dkdv_work(B, H, K, Sq, Skv, causal=True):
+    """The bf16 dK/dV launch's work split, from the index math of
+    ``flash_bwd_dkdv_tc`` (csrc/flash_attention_bwd.cu): one list per
+    block, in launch order (grid (K * C, B, key tiles), x fastest), of
+    the (batch, q-head, key tile, q tile) pairs of 64 x 64 it multiplies,
+    with C = ``dkdv_cluster(G)`` as the wrapper passes it."""
+    G = H // K
+    C = fa_kernel.dkdv_cluster(G)
+    tiles = (lambda n: -(-n // 64))
+    blocks = []
+    for z in range(tiles(Skv)):                  # grid.z: the key tile
+        first = z if causal else 0
+        for b in range(B):                       # grid.y
+            for x in range(K * C):               # grid.x: kv-head, rank
+                kvh, rank = divmod(x, C)
+                blocks.append([(b, kvh * G + rank + i * C, z, t)
+                               for i in range(G // C)
+                               for t in range(first, tiles(Sq))])
+    return blocks
+
+
+def _causal_pairs(B, H, n_q, n_k, causal):
+    """(batch, q-head, key tile, q tile) of every 64 x 64 tile pair with
+    a visible key: q tile t meets key tile z iff t >= z under the mask."""
+    return {(b, h, z, t) for b in range(B) for h in range(H)
+            for z in range(n_k) for t in range(n_q) if not causal or t >= z}
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,causal", [
+    (2, 1024, 1024, 12, 2, True),         # qwen2-1.5b's training shape
+    (1, 995, 995, 12, 2, True),           # ragged
+    (1, 300, 300, 12, 1, True),           # G = 12: two heads a block
+    (1, 70, 70, 11, 1, True),             # G = 11: one block, all heads
+    (2, 50, 130, 8, 1, False)])           # non-causal, ragged
+def test_dkdv_work_covers_every_tile_pair_once(B, Sq, Skv, H, K, causal):
+    blocks = dkdv_work(B, H, K, Sq, Skv, causal)
+    seen = collections.Counter(pair for blk in blocks for pair in blk)
+    assert set(seen.values()) == {1}
+    assert set(seen) == _causal_pairs(B, H, -(-Sq // 64), -(-Skv // 64),
+                                      causal)
+    # a block's heads share its kv-head: the partial dK/dV it sums are one
+    # kv-head's
+    G = H // K
+    assert all(len({h // G for _, h, _, _ in blk}) == 1 for blk in blocks)
+
+
+def test_dkdv_work_fills_the_card_longest_first():
+    """At qwen2-1.5b's training shape the dK/dV launch has more blocks
+    than the H100's 132 SMs, none with more than twice the mean work, and
+    the longest blocks launch first."""
+    blocks = dkdv_work(2, 12, 2, 1024, 1024, True)
+    work = [len(b) for b in blocks]
+    assert len(blocks) >= 132
+    assert max(work) <= 2.0 * (sum(work) / len(work))
+    assert work == sorted(work, reverse=True)
+
+
+@pytest.mark.parametrize("G,C", [(1, 1), (2, 2), (3, 3), (6, 6), (8, 8),
+                                 (9, 3), (11, 1), (12, 6), (16, 8)])
+def test_dkdv_cluster_is_the_largest_divisor_up_to_eight(G, C):
+    assert fa_kernel.dkdv_cluster(G) == C
 
 
 # ---------------------------------------------------------------------------
@@ -209,3 +346,19 @@ def test_tma_check_refuses_strides_off_the_16_byte_grid():
         fa_kernel.check_tma_operands(q, k, v)
     one_row = _fused(1, 1, 4, 2, 64, pad=4)[:3]        # S = 1: not read
     fa_kernel.check_tma_operands(*one_row)
+
+
+def test_bwd_tma_check_takes_views_of_a_fused_projection_and_do():
+    """The backward's check covers dO, the fourth operand it reads
+    through TMA; q, k, v as views of one fused projection pass."""
+    q, k, v, _ = _fused(2, 50, 4, 2, 64)
+    do = torch.zeros(q.shape, dtype=torch.bfloat16)
+    fa_kernel.check_tma_operands(q, k, v, do)          # raises on refusal
+
+
+def test_bwd_tma_check_refuses_a_misaligned_do():
+    q, k, v, _ = _fused(1, 16, 4, 2, 64)
+    buf = torch.zeros(q.numel() + 4, dtype=torch.bfloat16)
+    do = buf[4:].view(q.shape)                         # 8 bytes in
+    with pytest.raises(ValueError, match="do 16-byte aligned"):
+        fa_kernel.check_tma_operands(q, k, v, do)
