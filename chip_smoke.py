@@ -50,12 +50,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
    bf16, batch 2 x 1024, on ``SyntheticLM`` through
    ``repro_torch.launch.train.run``: finite, falling loss, the kernels
    launched as many times as the layer count says, step ms, tokens/s,
-   device busy and idle share (torch.profiler) and peak memory.
+   device busy and idle share (torch.profiler) and peak memory;
+9. loop   — qwen2-1.5b at full width: (a) ``repro_torch.train.loop.run``
+   for 8 steps at phase 8's shape, a checkpoint every 3 (async, the last
+   kept), a failure injected before step 5 and a re-mesh before step 7:
+   one restart, one re-mesh, the state restored at step 3 equal to the
+   saved one (per-leaf checksums taken on the card) and the replayed
+   step-3 loss equal to the first one, bit for bit, the kernels launched
+   as many times as the steps run say; save, write and restore seconds,
+   bytes written and step ms; (b) one whole train step traced on the
+   meta device (``repro_torch.core.analyze``): one trace op per kernel
+   call of a step, matrix-product FLOPs equal to the count from the
+   config, and the step SIMULATED on one chip with the reference's v5e
+   ChipSpec and with the H100's datasheet, beside phase 8's measured
+   step; (c) ``examples/quickstart_torch.py`` end to end on the card.
 
 Before the last line it prints ``{"kernels": [...]}`` and the card's name
 and power limit from nvidia-smi; the last line is ``{"ok": true,
 "device": {...}}``.  Every case, the serving and training numbers and
-the MGMark rows also go to ``build/chip_smoke.json``.  Without a CUDA
+the MGMark rows and phase 9's ``loop``, ``analysis`` and ``quickstart``
+numbers also go to ``build/chip_smoke.json``.  Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -173,6 +187,18 @@ TRAIN_GRAD_BATCH, TRAIN_GRAD_SEQ = 1, 1024
 TRAIN_F32_TOL = 1e-4
 TRAIN_BF16_MARGIN = 0.05
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 20, 2, 1024, 3e-4
+# phase 9.  (a) loop.run at phase 8's shape: a checkpoint every 3 steps,
+# the last one kept (one is 17.8 GB: bf16 params and f32 moments; two
+# exist while the next is written), written asynchronously; a node
+# failure injected before step 5 (restore from step 3, replay 3..4) and
+# an elastic re-mesh onto a fresh 1x1 mesh before step 7.  (b) the H100
+# SXM datasheet as the simulator's ChipSpec (dense bf16 tensor cores,
+# f32 CUDA cores, HBM3), beside the reference's default (a TPU v5e).
+LOOP_STEPS, LOOP_CKPT_EVERY, LOOP_KEEP = 8, 3, 1
+LOOP_FAULT_STEP, LOOP_REMESH_STEP = 5, 7
+H100_CHIP = dict(name="h100-sxm", peak_bf16_flops=989e12,
+                 peak_f32_flops=67e12, hbm_bandwidth=HBM_BYTES_PER_S,
+                 hbm_capacity=80 * 10 ** 9)
 # device time of a training step by kernel group: (group, substrings of
 # the kernels' names), first match wins
 TRAIN_KERNEL_GROUPS = (
@@ -253,6 +279,12 @@ def ssd_f64(x, dt, cs, Bm, Cm):
             torch.einsum("rhqn,rhq,rhqp->rhnp", Bm, w, x))
 
 
+def kbound(cost, dtype: str):
+    """``bound`` of a ``repro_torch.kernels.cost`` (operations, bytes)."""
+    ops, nbytes = cost
+    return bound(nbytes, ops, dtype)
+
+
 def bound(nbytes: float, ops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[dtype]
@@ -302,7 +334,7 @@ def phase_kernels():
     from repro_torch.kernels import ssd
     print("== phase 2: kernels vs their plain versions", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    from repro_torch.kernels import bitonic, ops, stencil
+    from repro_torch.kernels import bitonic, cost, ops, stencil
     cases = {"flash_attention": [], "rmsnorm": [], "add_rmsnorm": [],
              "gated_rmsnorm": [], "ssd_chunk_kernel": [], "stencil2d": [],
              "bitonic_stage": [], "bitonic_block": [],
@@ -376,13 +408,11 @@ def phase_kernels():
             want = ref.flash_attention_ref(q, k, v, causal=True)
             torch.cuda.synchronize()
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-            n_ops = 4 * H * hd * S * (S + 1) / 2      # causal pairs only
             record("flash_attention", f"S={S}", dtype, got, want,
                    lambda: fa.flash_attention(q, k, v, causal=True),
                    lambda: ref.flash_attention_ref(q, k, v, True),
                    {name: sdpa(qt, kt, vt, name) for name in SDPA_BACKENDS},
-                   bound(nbytes, n_ops, dtype))
+                   kbound(cost.flash_attention(q, k), dtype))
 
     # The flash backward at qwen2-1.5b's heads, on the kernel forward's o
     # and log-sum-exp (held to the plain LSE first).  Bound: 2.5x the
@@ -427,16 +457,14 @@ def phase_kernels():
             got = fa.flash_attention_bwd(q, k, v, o, lse, do)
             want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do)
             torch.cuda.synchronize()
-            nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
-                + 4 * lse.numel()
-            n_ops = 2.5 * 4 * B * H * hd * S * (S + 1) / 2
             times = launch_ms(
                 lambda: fa.flash_attention_bwd(q, k, v, o, lse, do))
             record("flash_attention_bwd", f"B={B},S={S},hd={hd}", dtype,
                    got, want,
                    lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
                    lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do),
-                   sdpa_times(q, k, v, do), bound(nbytes, n_ops, dtype),
+                   sdpa_times(q, k, v, do),
+                   kbound(cost.flash_attention_bwd(q, k, lse), dtype),
                    tol=BWD_TOL[dtype],
                    lse_max_abs_err=lse_err.max().item(),
                    library_calls="SDPA forward + backward less forward",
@@ -479,8 +507,6 @@ def phase_kernels():
                                                (dh, dy))
                 plain = (lambda: ref.add_rmsnorm_bwd_ref(x, w, dy, dh, 1e-6))
             lib_ms = time_ms(lib_both) - time_ms(lib_fwd)
-            n = x.numel()
-            nbytes = ((3 + (dh is not None)) * n + 2 * d) * x.element_size()
             times = launch_ms(lambda: rms.rmsnorm_bwd(x, w, dy, 1e-6, dh=dh))
             # autograd's backward alone: a graph built once, kept
             y = lib_fwd()
@@ -489,7 +515,8 @@ def phase_kernels():
                 dy if dh is None else (dh, dy), retain_graph=True))
             record(kind, f"rows={rows},d={d}", dtype, got, want,
                    lambda: rms.rmsnorm_bwd(x, w, dy, 1e-6, dh=dh), plain,
-                   {"autograd": lib_ms}, bound(nbytes, 12 * n, dtype),
+                   {"autograd": lib_ms},
+                   kbound(cost.rmsnorm_bwd(x, w, dh is not None), dtype),
                    tol=BWD_TOL[dtype],
                    library_calls=("F.rms_norm" if dh is None else
                                   "x + r; F.rms_norm")
@@ -509,13 +536,12 @@ def phase_kernels():
                 got = rms.rmsnorm(x, w, 1e-6)
                 want = ref.rmsnorm_ref(x, w, 1e-6)
                 torch.cuda.synchronize()
-                nbytes = (2 * x.numel() + w.numel()) * x.element_size()
                 shape = f"rows={rows}" + ("" if d == 1536 else f",d={d}")
                 record("rmsnorm", shape, dtype, got, want,
                        lambda: rms.rmsnorm(x, w, 1e-6),
                        lambda: ref.rmsnorm_ref(x, w, 1e-6),
                        lambda: F.rms_norm(x, (d,), w, 1e-6),
-                       bound(nbytes, 4 * x.numel(), dtype))
+                       kbound(cost.rmsnorm(x, w), dtype))
 
     # the fused norms.  Bytes: x, r or z and w read once, h (add) and out
     # written once; operations per element: 5 for add + norm (add, square
@@ -535,7 +561,6 @@ def phase_kernels():
                                     device="cuda").to(dt)
                     w = (1 + 0.1 * torch.randn(d, generator=gen,
                                                device="cuda")).to(dt)
-                    n = x.numel()
                     if kind == "add_rmsnorm":
                         h, got = rms.add_rmsnorm(x, o, w, 1e-6)
                         want_h, want = ref.add_rmsnorm_ref(x, o, w, 1e-6)
@@ -546,8 +571,7 @@ def phase_kernels():
                         fn = (lambda: rms.add_rmsnorm(x, o, w, 1e-6))
                         plain = (lambda: ref.add_rmsnorm_ref(x, o, w, 1e-6))
                         lib = (lambda: F.rms_norm(x + o, (d,), w, 1e-6))
-                        b = bound((4 * n + d) * x.element_size(), 5 * n,
-                                  dtype)
+                        b = kbound(cost.add_rmsnorm(x, w), dtype)
                     else:
                         got = rms.gated_rmsnorm(x, o, w, 1e-6)
                         want = ref.gated_rmsnorm_ref(x, o, w, 1e-6)
@@ -556,8 +580,7 @@ def phase_kernels():
                         plain = (lambda: ref.gated_rmsnorm_ref(x, o, w, 1e-6))
                         lib = (lambda: F.rms_norm(x * F.silu(o), (d,), w,
                                                   1e-6))
-                        b = bound((3 * n + d) * x.element_size(), 9 * n,
-                                  dtype)
+                        b = kbound(cost.gated_rmsnorm(x, w), dtype)
                     record(kind, f"rows={rows},d={d}", dtype, got, want, fn,
                            plain, lib, b, library_calls=(
                                "x + r; F.rms_norm" if kind == "add_rmsnorm"
@@ -588,19 +611,13 @@ def phase_kernels():
                           for a, t in zip(pair, truth))
                for label, pair in (("kernel", got), ("plain", want))}
         torch.cuda.synchronize()
-        # bytes: x, dt, cs once, B and C once per chunk, y and the states;
-        # operations: the causal half of C.B^T and of att @ x, and B^T x
-        nbytes = 4 * (2 * R * H * Q * P + 2 * R * H * Q + 2 * R * Q * N
-                      + R * H * N * P)
-        pairs = Q * (Q + 1) / 2
-        n_ops = R * H * (2 * pairs * N + 2 * pairs * P + 2 * Q * N * P)
         # the kernel's products are 3xTF32 on the tensor cores; the f32
         # CUDA-core bound of the earlier kernel stays beside it
         record("ssd_chunk_kernel", label, "float32", got, want,
                lambda: ssd.ssd_chunk(*args),
                lambda: ref.ssd_chunk_ref(*args), None,
-               bound(nbytes, n_ops, "tf32x3"), tol=SSD_TOL,
-               bound_ms_f32=bound(nbytes, n_ops, "float32")[0],
+               kbound(cost.ssd_chunk(x, Bm), "tf32x3"), tol=SSD_TOL,
+               bound_ms_f32=kbound(cost.ssd_chunk(x, Bm), "float32")[0],
                max_abs_err_vs_f64=f64)
 
     # stencil2d: bytes img once in, once out (and the K*K weights); 2 K^2
@@ -613,13 +630,12 @@ def phase_kernels():
         got = stencil.stencil2d(img, kern)
         want = ref.stencil2d_ref(img, kern)
         torch.cuda.synchronize()
-        nbytes = (2 * H * W + K * K) * img.element_size()
         record("stencil2d", f"{H}x{W},K={K}", dtype, got, want,
                lambda: stencil.stencil2d(img, kern),
                lambda: ref.stencil2d_ref(img, kern),
                lambda: F.conv2d(img[None, None], kern[None, None],
                                 padding=K // 2),
-               bound(nbytes, 2 * K * K * H * W, "float32"),
+               kbound(cost.stencil2d(img, kern), "float32"),
                tol=STENCIL_TOL[dtype])
 
     # bitonic_stage: bytes x once in, once out; one compare and two
@@ -639,7 +655,7 @@ def phase_kernels():
         record("bitonic_stage", shape, dtype, got, want,
                lambda: bitonic.bitonic_stage(x, dist, size, offset),
                lambda: ref.bitonic_stage_ref(x, dist, size, offset), None,
-               bound(2 * L * x.element_size(), L, "float32"), tol=(0.0, 0.0))
+               kbound(cost.bitonic(x), "float32"), tol=(0.0, 0.0))
 
     # bitonic_block: bytes x once in, once out; one operation per element
     # and stage, as for a stage.  No one PyTorch call computes a run of
@@ -680,7 +696,7 @@ def phase_kernels():
         record("bitonic_block", shape, dtype, got, want,
                lambda: bitonic.bitonic_block(x, size, bs.BLOCK, offset),
                lambda: ref.bitonic_block_ref(x, size, bs.BLOCK, offset), None,
-               bound(2 * L * x.element_size(), stages * L, "float32"),
+               kbound(cost.bitonic(x, stages), "float32"),
                tol=(0.0, 0.0), **extra)
     return cases
 
@@ -1276,6 +1292,261 @@ def phase_train():
     return out, run_launches
 
 
+def _checksums(state):
+    """{leaf path: int64 sum of the leaf's bits (viewed as int16 or int32),
+    taken on the card}; ints as themselves."""
+    import torch
+    from repro_torch.train.checkpoint import _flatten
+    flat = _flatten(state)
+    keys = [k for k, t in flat.items() if isinstance(t, torch.Tensor)]
+    bits = {2: torch.int16, 4: torch.int32}
+    sums = torch.stack([flat[k].view(bits[flat[k].element_size()])
+                        .sum(dtype=torch.int64) for k in keys]).tolist()
+    return {**dict(zip(keys, sums)),
+            **{k: t for k, t in flat.items() if k not in keys}}
+
+
+@contextlib.contextmanager
+def checkpoint_spy(log):
+    """Wraps CheckpointManager's save, write and restore: per-leaf
+    checksums of each saved state (before the save) and each restored
+    one, and the seconds of each part, appended to ``log``."""
+    import os
+    from repro_torch.train.checkpoint import CheckpointManager as M
+    real = {k: getattr(M, k) for k in ("save", "_write", "restore")}
+
+    def save(self, step, state, extra=None):
+        log["saved"][step] = _checksums(state)
+        t0 = time.perf_counter()
+        self.wait()                   # the previous write, timed apart
+        t1 = time.perf_counter()
+        out = real["save"](self, step, state, extra)
+        log["saves"].append({"step": step, "wait_s": t1 - t0,
+                             "snapshot_s": time.perf_counter() - t1,
+                             "at": t0})
+        return out
+
+    def write(self, step, snapshot, extra):
+        t0 = time.perf_counter()
+        path = real["_write"](self, step, snapshot, extra)
+        nbytes = sum(e.stat().st_size for e in os.scandir(path))
+        log["writes"].append({"step": step, "write_s":
+                              time.perf_counter() - t0, "bytes": nbytes,
+                              "at": t0, "end": time.perf_counter()})
+        return path
+
+    def restore(self, step=None, device="cuda"):
+        t0 = time.perf_counter()
+        tree, manifest = real["restore"](self, step, device)
+        if tree is not None:
+            log["restored"][manifest["step"]] = _checksums(tree)
+            log["restores"].append({"step": manifest["step"], "restore_s":
+                                    time.perf_counter() - t0})
+        return tree, manifest
+    M.save, M._write, M.restore = save, write, restore
+    try:
+        yield log
+    finally:
+        for k, f in real.items():
+            setattr(M, k, f)
+
+
+def phase_loop(train_step_ms: float):
+    """Phase 9.  Returns ({"loop", "analysis", "quickstart"}, launches of
+    the loop's run by kernel)."""
+    import importlib.util
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core import (ChipSpec, SystemSpec, analyze, build_terms,
+                                  cost_analysis, matmul_flops, simulate)
+    from repro_torch.core.hlo import count_ops
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api, get_config
+    from repro_torch.sharding import umode
+    from repro_torch.train import loop, optim
+    from repro_torch.train.data import DataConfig
+    print(f"== phase 9: fault-tolerant loop and cost analysis, {TRAIN_ARCH} "
+          f"at full width", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    L = cfg.num_layers
+    per_step = {"flash_attention": L, "flash_attention_bwd": L,
+                "rmsnorm": 1, "rmsnorm_bwd": 1, "add_rmsnorm": 2 * L,
+                "add_rmsnorm_bwd": 2 * L}
+
+    # (a) the loop
+    tmp = tempfile.gettempdir()
+    free0 = shutil.disk_usage(tmp).free
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    log = {"saved": {}, "restored": {}, "saves": [], "writes": [],
+           "restores": []}
+    starts = []                       # host clock at each step's call
+    real_make = umode.make_train_step
+
+    def make_step(*args, **kwargs):
+        step = real_make(*args, **kwargs)
+
+        def timed(state, batch):
+            starts.append(time.perf_counter())
+            return step(state, batch)
+        return timed
+    loop.umode.make_train_step = make_step
+    ops.reset_launches()
+    try:
+        with checkpoint_spy(log):
+            rep = loop.run(
+                cfg, make_mesh((1, 1), ("data", "model")),
+                DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                           global_batch=TRAIN_BATCH),
+                opt_cfg=optim.OptConfig(lr=TRAIN_LR, total_steps=LOOP_STEPS,
+                                        warmup_steps=1),
+                loop_cfg=loop.LoopConfig(
+                    total_steps=LOOP_STEPS, ckpt_every=LOOP_CKPT_EVERY,
+                    keep=LOOP_KEEP, ckpt_dir=ckpt_dir, async_ckpt=True,
+                    log_every=1),
+                fault_schedule={LOOP_FAULT_STEP:
+                                RuntimeError("injected node failure")},
+                remesh_schedule={LOOP_REMESH_STEP:
+                                 make_mesh((1, 1), ("data", "model"))})
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+    finally:
+        loop.umode.make_train_step = real_make
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    print(f"  {rep.steps_run} steps run, restarts {rep.restarts}, re-mesh "
+          f"events {rep.remesh_events}, final step {rep.final_step}, "
+          f"stragglers {rep.straggler_steps}; losses {rep.losses}")
+    check(rep.restarts == 1 and rep.remesh_events == 1
+          and rep.final_step == LOOP_STEPS,
+          f"loop: restarts {rep.restarts}, re-mesh {rep.remesh_events}, "
+          f"final step {rep.final_step}")
+    check(all(np.isfinite(rep.losses)), f"non-finite loss: {rep.losses}")
+    # steps 0..4, then the restore from step 3 and steps 3..7
+    first = LOOP_FAULT_STEP
+    check(len(rep.losses) == first + LOOP_STEPS - LOOP_CKPT_EVERY,
+          f"{len(rep.losses)} losses")
+    want = {k: rep.steps_run * v for k, v in per_step.items()}
+    got = {k: v for k, v in launches.items() if v}
+    check(got == want, f"the loop launched {got}, expected {want}")
+    saved, restored = log["saved"], log["restored"]
+    check(list(restored) == [LOOP_CKPT_EVERY],
+          f"restored steps {list(restored)}, expected [{LOOP_CKPT_EVERY}]")
+    same_state = restored[LOOP_CKPT_EVERY] == saved[LOOP_CKPT_EVERY]
+    check(same_state, "the state restored at step 3 is not the one saved "
+                      "(per-leaf checksums differ)")
+    replay = rep.losses[first] == rep.losses[LOOP_CKPT_EVERY]
+    check(replay, f"step 3 replayed gives {rep.losses[first]!r}, before the "
+                  f"fault {rep.losses[LOOP_CKPT_EVERY]!r}")
+    replay4 = rep.losses[first + 1] == rep.losses[LOOP_CKPT_EVERY + 1]
+    busy = [(w["at"], w["end"]) for w in log["writes"]] + \
+        [(v["at"], v["at"] + v["wait_s"] + v["snapshot_s"])
+         for v in log["saves"]]
+    quiet = [dt * 1e3 for i, (t0, dt) in enumerate(zip(starts, rep.step_s))
+             if i > 0 and not any(a < t0 + dt and t0 < b for a, b in busy)]
+    loop_out = {
+        "steps_run": rep.steps_run, "final_step": rep.final_step,
+        "restarts": rep.restarts, "remesh_events": rep.remesh_events,
+        "straggler_steps": rep.straggler_steps, "losses": rep.losses,
+        "step_ms": [t * 1e3 for t in rep.step_s],
+        "step_ms_median_all": statistics.median(rep.step_s[1:]) * 1e3,
+        "step_ms_median_away_from_checkpoints":
+            statistics.median(quiet) if quiet else None,
+        "steps_away_from_checkpoints": len(quiet),
+        "phase8_step_ms_median": train_step_ms,
+        "restored_state_bit_identical": same_state,
+        "replayed_step3_loss_bit_identical": replay,
+        "replayed_step4_loss_bit_identical": replay4,
+        "free_disk_bytes_before": free0, "tmpdir": tmp,
+        "bytes_written": sum(w["bytes"] for w in log["writes"]),
+        "saves": log["saves"], "writes": log["writes"],
+        "restores": log["restores"], "launches": got}
+    print(f"  state restored at step 3 bit-identical to the saved one: "
+          f"{same_state}; replayed step 3 loss bit-identical: {replay}; "
+          f"replayed step 4 loss bit-identical (not gated): {replay4}")
+    print(f"  free disk under {tmp} before: {free0 / 1e9:.1f} GB; written "
+          f"{loop_out['bytes_written'] / 1e9:.2f} GB in "
+          f"{len(log['writes'])} checkpoints; snapshot s "
+          f"{[round(v['snapshot_s'], 3) for v in log['saves']]}, wait s "
+          f"{[round(v['wait_s'], 3) for v in log['saves']]}, async write s "
+          f"{[round(w['write_s'], 3) for w in log['writes']]}, restore s "
+          f"{[round(r['restore_s'], 3) for r in log['restores']]}")
+    print(f"  step ms: median {loop_out['step_ms_median_all']:.1f} (steps "
+          f"after the first), {loop_out['step_ms_median_away_from_checkpoints']}"
+          f" over the {len(quiet)} steps that overlap no save or write; "
+          f"phase 8's median {train_step_ms:.1f}")
+
+    # (b) the cost front end: one whole train step traced on meta
+    t0 = time.perf_counter()
+    state = optim.init_state(api.init(0, cfg, device="meta"))
+    batch = {k: torch.zeros((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int64,
+                            device="meta") for k in ("tokens", "targets")}
+    cost = analyze(umode.make_train_step(cfg, optim.OptConfig()), state,
+                   batch)
+    trace_s = time.perf_counter() - t0
+    kernel_ops = {k: v for k, v in count_ops(cost).items()
+                  if not k.startswith("aten.")}
+    check(kernel_ops == per_step, f"traced kernel ops {kernel_ops}, the "
+                                  f"launch counters' step {per_step}")
+    d = cfg.d_model
+    mm_params = L * (d * (2 * cfg.q_dim + 2 * cfg.kv_dim) + 3 * d * cfg.d_ff) \
+        + d * cfg.padded_vocab
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    want_mm = 3 * 2 * mm_params * tokens         # forward, dX and dW
+    check(matmul_flops(cost) == want_mm, f"traced matmul FLOPs "
+          f"{matmul_flops(cost)}, from the config {want_mm}")
+    sims = {}
+    for label, chip in (("v5e (the reference's default ChipSpec)",
+                         ChipSpec()), ("h100-sxm datasheet", ChipSpec(
+                             **H100_CHIP))):
+        spec = SystemSpec(chip=chip, pod_shape=(1, 1))
+        terms = build_terms(f"{TRAIN_ARCH}/train-step", "(1,1)", 1,
+                            cost_analysis(cost), cost, spec)
+        sim = simulate(cost=cost, spec=spec, device_limit=1)
+        sims[chip.name] = {"label": label, "sim_step_ms": sim.time_s * 1e3,
+                           "compute_util": sim.compute_util,
+                           "t_compute_ms": terms.t_compute * 1e3,
+                           "t_memory_ms": terms.t_memory * 1e3,
+                           "dominant": terms.dominant}
+        print(f"  SIMULATED (not measured) step on one {label}: "
+              f"{sim.time_s * 1e3:.3f} ms (util {sim.compute_util:.3f}; "
+              f"compute {terms.t_compute * 1e3:.3f} ms, memory "
+              f"{terms.t_memory * 1e3:.3f} ms, {terms.dominant}-bound)")
+    ratio = sims["h100-sxm"]["sim_step_ms"] / train_step_ms
+    analysis = {"trace_s": trace_s, "trace_ops": len(cost.trace),
+                "kernel_ops": kernel_ops, "flops": cost.flops,
+                "matmul_flops": matmul_flops(cost), "hbm_bytes": cost.hbm_bytes,
+                "simulated": sims, "measured_step_ms_phase8": train_step_ms,
+                "simulated_over_measured_h100": ratio}
+    print(f"  traced one train step on meta in {trace_s:.2f} s: "
+          f"{len(cost.trace)} ops, {cost.flops:.4g} FLOPs ({want_mm:.4g} in "
+          f"matrix products, as the config counts), {cost.hbm_bytes:.4g} HBM "
+          f"bytes, kernel ops {kernel_ops}")
+    print(f"  simulated h100-sxm step / phase 8's measured median step "
+          f"({train_step_ms:.1f} ms): {ratio:.3f}")
+
+    # (c) the quickstart on the card
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
+    quick = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quick)
+    q_report, q_done, q_terms, q_sim = quick.main(device="cuda")
+    check(q_report.final_step == 20 and len(q_done) == 4
+          and np.isfinite(q_report.final_loss) and q_sim.time_s > 0,
+          "the quickstart did not finish")
+    quickstart = {"final_loss": q_report.final_loss, "served": len(q_done),
+                  "flops": q_terms.flops_per_device,
+                  "hbm_bytes": q_terms.hbm_bytes_per_device,
+                  "sim_step_ms_v5e": q_sim.time_s * 1e3}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loop": loop_out, "analysis": analysis,
+            "quickstart": quickstart}, got
+
+
 def _paths(tree, prefix=()):
     """The key paths of a nested dict, in ``optim.leaves`` order."""
     if isinstance(tree, dict):
@@ -1305,6 +1576,7 @@ def main() -> int:
         phase_f32(arch, phase + 1)
     mgmark_rows, mgmark_launches = phase_mgmark()
     train, train_launches = phase_train()
+    loop_phase, loop_launches = phase_loop(train["steps"]["step_ms_median"])
     # (shape, dtype) of each kernel's row in the kernels line
     H, W, K, _ = STENCIL_CASES[0]
     L, size, dist, _, _ = BITONIC_CASES[0]
@@ -1358,6 +1630,7 @@ def main() -> int:
                    for arch, run in serve.items()}
         by_path["mgmark"] = mgmark_launches[kname]
         by_path["train"] = train_launches[kname]
+        by_path["loop"] = loop_launches.get(kname, 0)
         kernels.append({
             "name": kname, "route": "cuda", "source": source[kname][0],
             "replaces": source[kname][1], "launches": sum(by_path.values()),
@@ -1380,7 +1653,7 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"device": name, "kernels": kernels, "serve": serve,
-         "mgmark": mgmark_rows, "train": train,
+         "mgmark": mgmark_rows, "train": train, **loop_phase,
          "seconds": time.perf_counter() - t0},
         indent=1))
     smi = subprocess.run(

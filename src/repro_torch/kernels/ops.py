@@ -15,8 +15,15 @@ and an input requires grad, and otherwise launch the forward alone, with
 nothing saved.  Their backward kernels are not themselves
 differentiable: a double backward raises.  The kernels without a
 backward (``gated_rmsnorm``, SSD, stencil, bitonic) refuse such inputs
-with ``check_no_grad`` rather than cut the graph without a word.  On the
-CPU the plain versions differentiate as usual.
+with ``check_no_grad`` (``KernelBackwardMissing``) rather than cut the
+graph without a word.  On the CPU the plain versions differentiate as
+usual.
+
+Given ``meta`` tensors inside ``repro_torch.core.hlo.analyze``, a wrapper
+(and each Function's backward) launches nothing: it records the kernel's
+operations and bytes (``cost.py``) as one trace op named after it and
+returns empty meta outputs, so that a trace describes the kernel path.
+Meta tensors outside ``analyze`` raise.
 """
 from __future__ import annotations
 
@@ -26,7 +33,10 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from repro_torch.core import hlo
+
 from . import bitonic as _bitonic
+from . import cost
 from . import flash_attention as _fa
 from . import ref
 from . import rmsnorm as _rms
@@ -36,28 +46,101 @@ from . import stencil as _stencil
 __all__ = ["flash_attention", "flash_attention_bwd", "rmsnorm",
            "rmsnorm_bwd", "add_rmsnorm", "add_rmsnorm_bwd", "gated_rmsnorm",
            "ssd_chunk_kernel", "ssd_chunked", "stencil2d", "bitonic_stage",
-           "bitonic_block", "check_no_grad", "launch_counts",
-           "reset_launches", "ref"]
+           "bitonic_block", "check_no_grad", "KernelBackwardMissing",
+           "launch_counts", "reset_launches", "ref"]
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """The route of a call: True for the plain version (CPU tensors);
+    False for the kernel, launched on CUDA tensors or, on ``meta`` inside
+    ``core.hlo.analyze``, traced (``_kernel``).  Meta tensors outside
+    ``analyze``, and CUDA tensors inside it, raise."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"tensors on more than one device: {devices}")
-    return devices.pop().type == "cpu"
+    kind = devices.pop().type
+    if kind == "meta" and not hlo.tracing():
+        raise RuntimeError("a kernel wrapper got meta tensors outside "
+                           "repro_torch.core.hlo.analyze: nothing to launch")
+    if kind == "cuda" and hlo.tracing():
+        raise RuntimeError("analyze() traces the kernel path on meta "
+                           "tensors; a CUDA kernel's launch is not traced")
+    return kind == "cpu"
+
+
+def _kernel(wrapper, launch, meta, *args, **kwargs):
+    """``launch(*args, **kwargs)``, counted in ``wrapper.launches``.  On
+    the meta device (inside ``analyze``) nothing launches and nothing is
+    counted: ``meta(*args, **kwargs)`` gives the kernel's (operations,
+    bytes, outputs), recorded as one ``TraceOp`` named after the wrapper,
+    and the outputs, empty meta tensors of the kernel's shapes and
+    dtypes, are returned."""
+    if args[0].device.type == "meta":
+        ops, nbytes, out = meta(*args, **kwargs)
+        hlo.record(wrapper.__name__, ops, nbytes)
+        return out
+    out = launch(*args, **kwargs)
+    wrapper.launches += 1
+    return out
+
+
+def _fa_meta(q, k, v, causal=True, with_lse=False):
+    out = torch.empty_like(q)
+    lse = q.new_empty((q.shape[0], q.shape[2], q.shape[1]),
+                      dtype=torch.float32)
+    return (*cost.flash_attention(q, k, causal, with_lse),
+            (out, lse) if with_lse else out)
+
+
+def _fa_bwd_meta(q, k, v, o, lse, do, causal=True):
+    return (*cost.flash_attention_bwd(q, k, lse, causal),
+            (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)))
+
+
+def _norm_meta(x, w, eps):
+    return (*cost.rmsnorm(x, w), torch.empty_like(x))
+
+
+def _add_norm_meta(x, r, w, eps):
+    return (*cost.add_rmsnorm(x, w), (torch.empty_like(x),
+                                      torch.empty_like(x)))
+
+
+def _gated_norm_meta(x, z, w, eps):
+    return (*cost.gated_rmsnorm(x, w), torch.empty_like(x))
+
+
+def _norm_bwd_meta(x, w, dy, eps, dh=None):
+    return (*cost.rmsnorm_bwd(x, w, residual=dh is not None),
+            (torch.empty_like(x), torch.empty_like(w)))
+
+
+def _ssd_meta(x, dt, cs, Bm, Cm):
+    R, H, Q, P = x.shape
+    N = Bm.shape[-1]
+    return (*cost.ssd_chunk(x, Bm),
+            (x.new_empty((R, H, Q, P), dtype=torch.float32),
+             x.new_empty((R, H, N, P), dtype=torch.float32)))
 
 
 def _needs_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+class KernelBackwardMissing(RuntimeError):
+    """A kernel without a backward was asked for one: a fault of the
+    program, which raises the same way every time, not of a node (the
+    training loop re-raises it rather than restore and replay)."""
+
+
 def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
-    """Raise if autograd would need a backward of kernel ``name``, which
-    has none: grad mode is on and an input requires grad.  The wrappers
-    of the kernels without a backward call it before they launch on the
-    card; under ``torch.no_grad()`` it passes."""
+    """Raise ``KernelBackwardMissing`` if autograd would need a backward
+    of kernel ``name``, which has none: grad mode is on and an input
+    requires grad.  The wrappers of the kernels without a backward call
+    it before they launch on the card; under ``torch.no_grad()`` it
+    passes."""
     if _needs_grad(*tensors):
-        raise RuntimeError(
+        raise KernelBackwardMissing(
             f"{name}: the CUDA kernel has no backward, and an input requires "
             f"grad.  Its backward comes with the port's mamba training "
             f"slice; until then train on the plain path "
@@ -70,8 +153,8 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        out, lse = _fa.flash_attention(q, k, v, causal=causal, with_lse=True)
-        flash_attention.launches += 1
+        out, lse = _kernel(flash_attention, _fa.flash_attention, _fa_meta,
+                           q, k, v, causal=causal, with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         return out
@@ -96,9 +179,8 @@ def flash_attention(q, k, v, causal: bool = True):
         return ref.flash_attention_ref(q, k, v, causal=causal)
     if _needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, causal)
-    out = _fa.flash_attention(q, k, v, causal=causal)
-    flash_attention.launches += 1
-    return out
+    return _kernel(flash_attention, _fa.flash_attention, _fa_meta, q, k, v,
+                   causal=causal)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
@@ -109,17 +191,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
     on TMA's grid as the forward's do)."""
     if _on_cpu(q, k, v, o, lse, do):
         return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
-    out = _fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
-    flash_attention_bwd.launches += 1
-    return out
+    return _kernel(flash_attention_bwd, _fa.flash_attention_bwd, _fa_bwd_meta,
+                   q, k, v, o, lse, do, causal=causal)
 
 
 class _RMSNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, eps):
-        out = _rms.rmsnorm(x, w, eps)
-        rmsnorm.launches += 1
+        out = _kernel(rmsnorm, _rms.rmsnorm, _norm_meta, x, w, eps)
         ctx.save_for_backward(x, w)
         ctx.eps = eps
         return out
@@ -138,8 +218,8 @@ class _AddRMSNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, r, w, eps):
-        h, out = _rms.add_rmsnorm(x, r, w, eps)
-        add_rmsnorm.launches += 1
+        h, out = _kernel(add_rmsnorm, _rms.add_rmsnorm, _add_norm_meta,
+                         x, r, w, eps)
         ctx.save_for_backward(h, w)
         ctx.eps = eps
         ctx.set_materialize_grads(False)
@@ -162,9 +242,7 @@ def rmsnorm(x, w, eps: float = 1e-6):
         return ref.rmsnorm_ref(x, w, eps)
     if _needs_grad(x, w):
         return _RMSNorm.apply(x, w, eps)
-    out = _rms.rmsnorm(x, w, eps)
-    rmsnorm.launches += 1
-    return out
+    return _kernel(rmsnorm, _rms.rmsnorm, _norm_meta, x, w, eps)
 
 
 def rmsnorm_bwd(x, w, dy, eps: float = 1e-6):
@@ -173,9 +251,7 @@ def rmsnorm_bwd(x, w, dy, eps: float = 1e-6):
     call)."""
     if _on_cpu(x, w, dy):
         return ref.rmsnorm_bwd_ref(x, w, dy, eps)
-    out = _rms.rmsnorm_bwd(x, w, dy, eps)
-    rmsnorm_bwd.launches += 1
-    return out
+    return _kernel(rmsnorm_bwd, _rms.rmsnorm_bwd, _norm_bwd_meta, x, w, dy, eps)
 
 
 def add_rmsnorm(x, r, w, eps: float = 1e-6):
@@ -186,9 +262,7 @@ def add_rmsnorm(x, r, w, eps: float = 1e-6):
         return ref.add_rmsnorm_ref(x, r, w, eps)
     if _needs_grad(x, r, w):
         return _AddRMSNorm.apply(x, r, w, eps)
-    out = _rms.add_rmsnorm(x, r, w, eps)
-    add_rmsnorm.launches += 1
-    return out
+    return _kernel(add_rmsnorm, _rms.add_rmsnorm, _add_norm_meta, x, r, w, eps)
 
 
 def add_rmsnorm_bwd(h, w, dout, dh=None, eps: float = 1e-6):
@@ -200,9 +274,8 @@ def add_rmsnorm_bwd(h, w, dout, dh=None, eps: float = 1e-6):
     extra = () if dh is None else (dh,)
     if _on_cpu(h, w, dout, *extra):
         return ref.add_rmsnorm_bwd_ref(h, w, dout, dh, eps)
-    out = _rms.rmsnorm_bwd(h, w, dout, eps, dh=dh)
-    add_rmsnorm_bwd.launches += 1
-    return out
+    return _kernel(add_rmsnorm_bwd, _rms.rmsnorm_bwd, _norm_bwd_meta,
+                   h, w, dout, eps, dh=dh)
 
 
 def gated_rmsnorm(x, z, w, eps: float = 1e-6):
@@ -211,9 +284,8 @@ def gated_rmsnorm(x, z, w, eps: float = 1e-6):
     if _on_cpu(x, z, w):
         return ref.gated_rmsnorm_ref(x, z, w, eps)
     check_no_grad("gated_rmsnorm", x, z, w)
-    out = _rms.gated_rmsnorm(x, z, w, eps)
-    gated_rmsnorm.launches += 1
-    return out
+    return _kernel(gated_rmsnorm, _rms.gated_rmsnorm, _gated_norm_meta,
+                   x, z, w, eps)
 
 
 def ssd_chunk_kernel(x, dt, cs, Bm, Cm):
@@ -223,9 +295,8 @@ def ssd_chunk_kernel(x, dt, cs, Bm, Cm):
     if _on_cpu(x, dt, cs, Bm, Cm):
         return ref.ssd_chunk_ref(x, dt, cs, Bm, Cm)
     check_no_grad("ssd_chunk_kernel", x, dt, cs, Bm, Cm)
-    out = _ssd.ssd_chunk(x, dt, cs, Bm, Cm)
-    ssd_chunk_kernel.launches += 1
-    return out
+    return _kernel(ssd_chunk_kernel, _ssd.ssd_chunk, _ssd_meta,
+                   x, dt, cs, Bm, Cm)
 
 
 def ssd_chunked(x, dt, A, Bm, Cm, chunk: int = 256, initial_state=None,
@@ -286,9 +357,9 @@ def stencil2d(img, kern):
     if _on_cpu(img, kern):
         return ref.stencil2d_ref(img, kern)
     check_no_grad("stencil2d", img, kern)
-    out = _stencil.stencil2d(img, kern)
-    stencil2d.launches += 1
-    return out
+    return _kernel(stencil2d, _stencil.stencil2d,
+                   lambda img, kern: (*cost.stencil2d(img, kern),
+                                      torch.empty_like(img)), img, kern)
 
 
 def bitonic_stage(x, dist: int, size: int, block: int = 2048,
@@ -309,9 +380,9 @@ def bitonic_stage(x, dist: int, size: int, block: int = 2048,
     if _on_cpu(x):
         return ref.bitonic_stage_ref(x, dist, size, offset)
     check_no_grad("bitonic_stage", x)
-    out = _bitonic.bitonic_stage(x, dist, size, offset)
-    bitonic_stage.launches += 1
-    return out
+    return _kernel(bitonic_stage, _bitonic.bitonic_stage,
+                   lambda x, *_: (*cost.bitonic(x), torch.empty_like(x)),
+                   x, dist, size, offset)
 
 
 def bitonic_block(x, size: int, block: int = 2048, offset: int = 0):
@@ -335,9 +406,11 @@ def bitonic_block(x, size: int, block: int = 2048, offset: int = 0):
     if _on_cpu(x):
         return ref.bitonic_block_ref(x, size, block, offset)
     check_no_grad("bitonic_block", x)
-    out = _bitonic.bitonic_block(x, size, block, offset)
-    bitonic_block.launches += 1
-    return out
+    stages = len(ref.bitonic_block_stages(size, block))
+    return _kernel(bitonic_block, _bitonic.bitonic_block,
+                   lambda x, *_: (*cost.bitonic(x, stages),
+                                  torch.empty_like(x)),
+                   x, size, block, offset)
 
 
 _WRAPPERS = (flash_attention, rmsnorm, add_rmsnorm, gated_rmsnorm,

@@ -1,1 +1,2 @@
-"""Launchers (port of ``repro/launch``): ``serve``."""
+"""Launchers (port of ``repro/launch``): ``serve``, ``train``, ``mgmark``
+and ``mesh.make_mesh``."""

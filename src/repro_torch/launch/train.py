@@ -1,17 +1,27 @@
 """Training launcher (port of ``repro/launch/train.py``): AdamW steps of
-one model on ``SyntheticLM`` batches, in one process on one device.
+one model on ``SyntheticLM`` batches through the fault-tolerant loop
+(``repro_torch.train.loop.run``), in one process on one device.
 
   python -m repro_torch.launch.train --arch qwen2-1.5b --device cuda \
-      --steps 20 --batch 2 --seq 1024 --lr 3e-4
+      --steps 20 --batch 2 --seq 1024 --lr 3e-4 \
+      --ckpt-dir /path/to/ckpt --ckpt-every 20
 
-Without the reference's ``--mesh`` (sharded U-mode comes later) and its
-checkpoint flags (the checkpoint manager and the restart loop come with
-the next slice); with ``--device`` (default cuda).  Each step prints its
-loss, grad norm, lr, step ms and tokens/s.
+The reference's flags, ``--mesh`` (a shape of ones: the train step is
+single-device until LM sharding), ``--ckpt-dir`` and ``--ckpt-every``
+among them, and ``--device`` (default cuda).  As in the reference a run
+resumes from the latest checkpoint in ``--ckpt-dir``.  Each step prints
+its loss and step ms; the last line has the final loss, the median ms
+of the steps after the first and tokens/s.
+
+``run`` takes AdamW steps without the loop, and so without checkpoints,
+for timing a step alone.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import statistics
+import tempfile
 import time
 
 import torch
@@ -21,6 +31,8 @@ from repro_torch.models import api, get_config
 from repro_torch.sharding import umode
 from repro_torch.train import optim
 from repro_torch.train.data import DataConfig, SyntheticLM
+from repro_torch.train.loop import LoopConfig, run as loop_run
+from .mesh import make_mesh
 
 
 def run(cfg, data_cfg: DataConfig, opt_cfg: optim.OptConfig, steps: int,
@@ -58,20 +70,34 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-1.5b-smoke")
     ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--mesh", default="1x1", help="DATAxMODEL, e.g. 1x1")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--ckpt-dir", default=os.path.join(
+        tempfile.gettempdir(), "repro_torch_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
+    d, m = (int(x) for x in args.mesh.split("x"))
+    mesh = make_mesh((d, m), ("data", "model"), device=args.device)
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                           global_batch=args.batch)
-    opt_cfg = optim.OptConfig(lr=args.lr, total_steps=args.steps,
-                              warmup_steps=max(1, args.steps // 10))
-    _, records = run(cfg, data_cfg, opt_cfg, args.steps, device=args.device)
-    print(f"final loss {records[-1]['loss']:.4f} after {len(records)} steps "
-          f"(first {records[0]['loss']:.4f}) on {args.device}")
+    report = loop_run(
+        cfg, mesh, data_cfg,
+        opt_cfg=optim.OptConfig(lr=args.lr, total_steps=args.steps,
+                                warmup_steps=max(1, args.steps // 10)),
+        loop_cfg=LoopConfig(total_steps=args.steps,
+                            ckpt_every=args.ckpt_every,
+                            ckpt_dir=args.ckpt_dir, log_every=1))
+    # the first step compiles and warms up
+    ms = statistics.median(report.step_s[1:]) * 1e3 \
+        if len(report.step_s) > 1 else float("nan")
+    print(f"final loss {report.final_loss:.4f} after {report.final_step} "
+          f"steps (restarts={report.restarts}) on {args.device}; median "
+          f"step {ms:.1f} ms, {args.batch * args.seq / ms * 1e3:.0f} tok/s")
     return 0
 
 

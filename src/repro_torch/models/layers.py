@@ -30,9 +30,17 @@ Params = typing.Dict[str, typing.Any]
 # init helpers
 # --------------------------------------------------------------------------
 
+class MetaGenerator:
+    """Stands in for a generator on the ``meta`` device, which has none:
+    draws there allocate nothing and make no values (``draws``)."""
+    device = torch.device("meta")
+
+
 def generator(seed, device: torch.device) -> torch.Generator:
     """``seed`` (an int, or a ``torch.Generator`` already on ``device``)
-    as a generator on ``device``."""
+    as a generator on ``device``; on ``meta`` a ``MetaGenerator``."""
+    if device.type == "meta":
+        return MetaGenerator()
     if isinstance(seed, torch.Generator):
         if seed.device != device:
             raise ValueError(f"generator on {seed.device}, params asked "
@@ -63,18 +71,24 @@ def layer_slices(tree, n: int):
     return tree.unbind(0)
 
 
+def draws(gen) -> typing.Optional[torch.Generator]:
+    """The ``generator=`` argument of a draw from ``gen``."""
+    return None if isinstance(gen, MetaGenerator) else gen
+
+
 def dense_init(gen: torch.Generator, shape, dtype, scale: float = None):
     """Truncated-normal (+-2 sigma) fan-in init; stacked shapes keep the
     per-slice fan-in (``shape[-2]``)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     w = torch.empty(shape, dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+                                generator=draws(gen))
     return (w * scale).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype):
-    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+    w = torch.randn(shape, generator=draws(gen), dtype=torch.float32,
                     device=gen.device)
     return (w * 0.02).to(dtype)
 

@@ -150,7 +150,7 @@ def init_mamba2(gen: torch.Generator, cfg, n_layers: int) -> Params:
 
     def uniform(lo, hi):
         return torch.empty((n, H), dtype=f32, device=dev).uniform_(
-            lo, hi, generator=gen)
+            lo, hi, generator=L.draws(gen))
 
     a = torch.exp(uniform(math.log(1.0), math.log(16.0)))
     u = uniform(1e-3, 1e-1)

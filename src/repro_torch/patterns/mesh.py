@@ -18,9 +18,12 @@ CPU's.
 """
 from __future__ import annotations
 
+import math
 import typing
 
 import torch
+
+from repro_torch.core import hlo
 
 DEV = "dev"          # the mesh axis; as a spec: split along dimension 0
 
@@ -28,12 +31,21 @@ Shards = typing.List[torch.Tensor]
 
 
 class Mesh:
-    """``devices``: one ``torch.device`` (or name) per shard."""
+    """``devices``: one ``torch.device`` (or name) per shard.  ``axes``
+    ({name: size}, in order; default ``{"dev": len(devices)}``) names the
+    mesh's axes as ``jax.sharding.Mesh`` does; their sizes multiply to
+    the number of devices, which the collectives treat as one axis."""
 
-    def __init__(self, devices: typing.Sequence):
+    def __init__(self, devices: typing.Sequence,
+                 axes: typing.Optional[typing.Dict[str, int]] = None):
         self.devices = [torch.device(d) for d in devices]
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
+        # {axis name: size}, as jax.sharding.Mesh.shape
+        self.shape = dict(axes) if axes else {DEV: len(self.devices)}
+        if math.prod(self.shape.values()) != len(self.devices):
+            raise ValueError(f"axes {self.shape} do not hold "
+                             f"{len(self.devices)} devices")
         self.bytes_by_kind: typing.Dict[str, float] = {}
 
     @property
@@ -48,6 +60,10 @@ class Mesh:
         self.bytes_by_kind = {}
 
     def _count(self, kind: str, xs: Shards) -> None:
+        if hlo.tracing():
+            raise NotImplementedError(
+                f"{kind} inside repro_torch.core.hlo.analyze: the tracer "
+                f"records no collectives yet (ROADMAP §1 item 1)")
         per_device = xs[0].numel() * xs[0].element_size()
         self.bytes_by_kind[kind] = self.bytes_by_kind.get(kind, 0.0) \
             + float(per_device)

@@ -738,3 +738,113 @@ def test_plain_backward_is_never_reached_on_the_card(cuda, monkeypatch):
         _, grads = _qwen_smoke_grads(
             params, cfg, {"tokens": toks[:, :-1], "targets": toks[:, 1:]})
         assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+# ---------------------------------------------------------------------------
+# the fault-tolerant loop, checkpoints and the cost front end on the card
+# ---------------------------------------------------------------------------
+
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_of_a_card_state_is_bit_exact(cuda, tmp_path):
+    """A bf16 TrainState on the card (qwen2-1.5b at full width, 4 layers,
+    after one step) saved asynchronously and restored to the card: every
+    leaf bit for bit, the step an int."""
+    from repro_torch.models import api, get_config
+    from repro_torch.sharding import umode
+    from repro_torch.train import optim
+    from repro_torch.train.checkpoint import CheckpointManager
+    cfg = get_config("qwen2-1.5b").replace(num_layers=4)
+    state = optim.init_state(api.init(0, cfg, device=cuda))
+    toks = torch.randint(0, cfg.vocab_size, (1, 257), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(6))
+    state, _ = umode.make_train_step(cfg)(
+        state, {"tokens": toks[:, :-1], "targets": toks[:, 1:]})
+    mgr = CheckpointManager(str(tmp_path), keep=1, async_save=True)
+    mgr.save(1, state)
+    mgr.wait()
+    got, manifest = mgr.restore(device=cuda)
+    assert got["step"] == 1 and manifest["step"] == 1
+    tensors = (lambda st: optim.leaves({k: st[k] for k in
+                                        ("params", "mu", "nu")}))
+    want, flat = tensors(state), tensors(got)
+    assert len(flat) == len(want) == 3 * len(optim.leaves(state["params"]))
+    assert {t.dtype for t in optim.leaves(got["params"])} == {torch.bfloat16}
+    for a, b in zip(flat, want):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+def test_train_step_trace_counts_equal_the_launch_counters(cuda):
+    """One full-width qwen2-1.5b training step on the card, and the same
+    step traced on meta: the kernel trace ops equal the launch counts."""
+    from repro_torch.core import hlo
+    from repro_torch.models import api, get_config
+    from repro_torch.sharding import umode
+    from repro_torch.train import optim
+    cfg = get_config("qwen2-1.5b")
+    step = umode.make_train_step(cfg)
+    state = optim.init_state(api.init(0, cfg, device=cuda))
+    toks = torch.randint(0, cfg.vocab_size, (1, 257), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(7))
+    ops.reset_launches()
+    state, m = step(state, {"tokens": toks[:, :-1], "targets": toks[:, 1:]})
+    assert np.isfinite(float(m["loss"]))
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    del state
+    meta = optim.init_state(api.init(0, cfg, device="meta"))
+    batch = {k: torch.zeros((1, 256), dtype=torch.int64, device="meta")
+             for k in ("tokens", "targets")}
+    cost = hlo.analyze(step, meta, batch)
+    traced = {k: v for k, v in hlo.count_ops(cost).items()
+              if not k.startswith("aten.")}
+    assert traced == launched
+    assert launched["flash_attention_bwd"] == cfg.num_layers
+
+
+@pytest.mark.cuda
+def test_loop_on_the_card_replays_through_the_kernels(cuda, tmp_path):
+    """qwen2-1.5b-smoke (f32, flash) through the loop on the card with a
+    fault at step 3 and a checkpoint every 2: one restart, the first
+    replayed loss bit-identical to its first run, every kernel and
+    backward kernel launched."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import get_config
+    from repro_torch.train.data import DataConfig
+    from repro_torch.train.loop import LoopConfig, run
+    cfg = get_config("qwen2-1.5b-smoke").replace(attn_impl="flash")
+    ops.reset_launches()
+    rep = run(cfg, make_mesh((1, 1), ("data", "model")),
+              DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                         global_batch=2),
+              loop_cfg=LoopConfig(total_steps=5, ckpt_every=2,
+                                  ckpt_dir=str(tmp_path), async_ckpt=True),
+              fault_schedule={3: RuntimeError("injected")}, verbose=False)
+    assert (rep.restarts, rep.final_step, rep.steps_run) == (1, 5, 6)
+    assert rep.losses[3] == rep.losses[2]          # step 2, replayed
+    counts = ops.launch_counts()
+    for name in ("flash_attention", "flash_attention_bwd", "rmsnorm",
+                 "rmsnorm_bwd", "add_rmsnorm", "add_rmsnorm_bwd"):
+        assert counts[name] > 0, name
+
+
+@pytest.mark.cuda
+def test_mamba_loop_on_the_card_raises_at_once(cuda, tmp_path, capsys):
+    """Mamba's SSD and gated-norm kernels have no backward: the loop
+    re-raises KernelBackwardMissing at the first step, never replays."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import get_config
+    from repro_torch.train.data import DataConfig
+    from repro_torch.train.loop import LoopConfig, run
+    cfg = get_config("mamba2-1.3b-smoke")
+    with pytest.raises(ops.KernelBackwardMissing, match="no backward"):
+        run(cfg, make_mesh((1, 1), ("data", "model")),
+            DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                       global_batch=2),
+            loop_cfg=LoopConfig(total_steps=3, ckpt_every=1,
+                                ckpt_dir=str(tmp_path)))
+    assert "FAILED" not in capsys.readouterr().out

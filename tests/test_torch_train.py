@@ -228,12 +228,13 @@ def test_train_step_matches_reference(reference_steps, attn_impl):
                                        err_msg=f"{key} {path}")
 
 
-def test_launch_train_on_cpu_lowers_the_loss(capsys):
+def test_launch_train_on_cpu_lowers_the_loss(capsys, tmp_path):
     assert launch_train.main(["--device", "cpu", "--steps", "24",
-                              "--batch", "4", "--seq", "32"]) == 0
+                              "--batch", "4", "--seq", "32",
+                              "--ckpt-dir", str(tmp_path)]) == 0
     out = capsys.readouterr().out
-    losses = [float(line.split()[3]) for line in out.splitlines()
-              if line.startswith("step ")]
+    losses = [float(line.split()[4]) for line in out.splitlines()
+              if line.startswith("[loop] step ")]
     assert len(losses) == 24 and np.isfinite(losses).all()
     assert np.mean(losses[-4:]) < np.mean(losses[:4])
     assert "final loss" in out and "tok/s" in out
