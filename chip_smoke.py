@@ -39,9 +39,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
 6. f32    — phase 4 for mamba2-1.3b;
 7. mgmark — the seven MGMark workloads in U-mode and D-mode on a 4-shard
    mesh on the card at ``default_size(4)`` (``repro_torch.launch.mgmark``):
-   each correct against its oracle, D-mode collective bytes equal to the
-   count from the shapes, the stencil and bitonic kernels launched as
-   many times as the SC and BS programs call them, device ms per run;
+   each correct against its oracle, D-mode collective bytes (counted and
+   traced) equal to the count from the shapes, U-mode's traced bytes (the
+   collectives DTensor issues) equal to the CPU tests' pins, the stencil
+   and bitonic kernels launched as many times as the SC and BS programs
+   call them and as the traces hold, the simulated fields finite, device
+   ms per run; each run's trace SIMULATED on 4 chips with the reference's
+   default (v5e) ChipSpec and with the H100's datasheet, the D-mode
+   simulated/bound ratios and the paper's four lessons printed;
 8. train  — qwen2-1.5b at full width: (a) f32 gradients of ``api.loss``
    (batch 1 x 1024, all 28 layers) on the kernel path against the plain
    path, each param's within TRAIN_F32_TOL of its max |g|; (b) the bf16
@@ -61,14 +66,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
    bytes written and step ms; (b) one whole train step traced on the
    meta device (``repro_torch.core.analyze``): one trace op per kernel
    call of a step, matrix-product FLOPs equal to the count from the
-   config, and the step SIMULATED on one chip with the reference's v5e
+   config (the chunked loss's recomputed unembedding included), and the
+   step SIMULATED on one chip with the reference's v5e
    ChipSpec and with the H100's datasheet, beside phase 8's measured
    step; (c) ``examples/quickstart_torch.py`` end to end on the card.
 
 Before the last line it prints ``{"kernels": [...]}`` and the card's name
 and power limit from nvidia-smi; the last line is ``{"ok": true,
 "device": {...}}``.  Every case, the serving and training numbers and
-the MGMark rows and phase 9's ``loop``, ``analysis`` and ``quickstart``
+the MGMark rows and simulated numbers and phase 9's ``loop``,
+``analysis`` and ``quickstart``
 numbers also go to ``build/chip_smoke.json``.  Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -157,6 +164,15 @@ BITONIC_BLOCK_CASES = ((131072, 2048, 0, "float32"),
 MGMARK_SHARDS = 4
 MGMARK_BYTES = {"aes": 0, "km": 2112, "fir": 60, "sc": 32768, "gd": 8192,
                 "mt": 67108864, "bs": 393216}
+# U-mode: the collectives DTensor issues for the global program (traced
+# on meta; pinned on the CPU by tests/test_torch_patterns.py): km an
+# all-reduce of the counts (16 f32) and one of the sums (16 x 32 f32); fir
+# an all-gather of the whole signal (262144 f32) for the pad; sc and bs
+# an all-gather of the whole image (4096^2 f32) and array (131072 f32)
+# for the kernels; gd 8 all-reduces of 256 f32; mt an all-to-all of a
+# shard's (2048, 8192) f32
+MGMARK_UMODE_BYTES = {"aes": 0, "km": 2112, "fir": 1048576, "sc": 67108864,
+                      "gd": 8192, "mt": 67108864, "bs": 524288}
 MGMARK_LAUNCHES = {("sc", "umode"): {"stencil2d": 1},
                    ("sc", "dmode"): {"stencil2d": 4},
                    ("bs", "umode"): {"bitonic_stage": 21, "bitonic_block": 7},
@@ -1044,11 +1060,15 @@ def phase_f32(arch: str, phase: int):
 
 def phase_mgmark():
     """Phase 7.  Returns (per-run rows, launches of the checked runs by
-    kernel)."""
+    kernel, the simulated numbers)."""
+    import math
     import torch
+    from repro_torch.core import ChipSpec, SystemSpec, simulate
+    from repro_torch.core.hlo import kernel_ops
     from repro_torch.kernels import ops
     from repro_torch.launch import mgmark
     from repro_torch.patterns import Mesh
+    from repro_torch.patterns.base import finite
     print(f"== phase 7: MGMark, U-mode and D-mode on a {MGMARK_SHARDS}-shard "
           f"mesh on the card", flush=True)
     gc.collect()
@@ -1060,15 +1080,14 @@ def phase_mgmark():
     wall = time.perf_counter() - t0
     total = ops.launch_counts()
     # each report's launches are its checked run's; the warm call and the
-    # timed repeats launch the same kernels again
+    # timed repeats launch the same kernels again; the traces launch none
     path = {k: sum(r.launches[k] for r in reports) for k in total}
+    specs = {"v5e": SystemSpec(pod_shape=(1, MGMARK_SHARDS)),
+             "h100-sxm": SystemSpec(chip=ChipSpec(**H100_CHIP),
+                                    pod_shape=(1, MGMARK_SHARDS))}
     rows = []
     for rep in reports:
         print("  " + rep.row(), flush=True)
-        rows.append({k: getattr(rep, k) for k in (
-            "name", "mode", "pattern", "correct", "max_err",
-            "collective_bytes", "bytes_by_kind", "device", "launches",
-            "device_ms")})
         check(rep.correct, f"MGMark {rep.name} {rep.mode}: output disagrees "
                            f"with the oracle (max abs err {rep.max_err})")
         check(rep.device_ms is not None and rep.device.startswith("cuda"),
@@ -1077,19 +1096,63 @@ def phase_mgmark():
         got = {k: v for k, v in rep.launches.items() if v}
         check(got == want, f"MGMark {rep.name} {rep.mode} launched {got}, "
                            f"expected {want}")
+        # the traced kernel ops: one device's program, so D-mode's are
+        # summed over every shard's trace
+        traced = kernel_ops(
+            [op for ops_ in rep.cost.shards.values() for op in ops_]
+            if rep.mode == "dmode" else rep.cost.trace)
+        check(traced == got, f"MGMark {rep.name} {rep.mode}: traced kernel "
+                             f"ops {traced}, launched {got}")
+        check(finite(rep), f"MGMark {rep.name} {rep.mode}: simulated fields "
+                           f"{rep.sim_time_s, rep.compute_util, rep.flops}")
+        traced_bytes = rep.cost.collective_bytes
         if rep.mode == "dmode":
-            check(rep.collective_bytes == MGMARK_BYTES[rep.name],
+            check(rep.collective_bytes == traced_bytes
+                  == MGMARK_BYTES[rep.name],
                   f"MGMark {rep.name} D-mode moved {rep.collective_bytes} B "
-                  f"per device, expected {MGMARK_BYTES[rep.name]}")
+                  f"per device, traced {traced_bytes}, expected "
+                  f"{MGMARK_BYTES[rep.name]}")
         else:
-            check(rep.collective_bytes is None, "U-mode bytes are not None")
+            check(rep.collective_bytes == traced_bytes
+                  == MGMARK_UMODE_BYTES[rep.name],
+                  f"MGMark {rep.name} U-mode traced {traced_bytes} B per "
+                  f"device, expected {MGMARK_UMODE_BYTES[rep.name]}")
+        sims = {label: simulate(cost=rep.cost, spec=spec,
+                                device_limit=8).time_s * 1e3
+                for label, spec in specs.items()}
+        check(sims["v5e"] == rep.sim_time_s * 1e3 and all(
+            math.isfinite(v) for v in sims.values()),
+            f"MGMark {rep.name} {rep.mode}: simulated {sims}")
+        rows.append({**{k: getattr(rep, k) for k in (
+            "name", "mode", "pattern", "correct", "max_err",
+            "collective_bytes", "bytes_by_kind", "device", "launches",
+            "device_ms", "compute_util", "flops", "hbm_bytes")},
+            "sim_ms": sims, "trace_ops": len(rep.cost.trace),
+            "traced_kernel_ops": traced,
+            "unattributed_ops": len(rep.cost.unattributed)
+            if rep.mode == "dmode" else None})
+        print(f"    SIMULATED (not measured) on {MGMARK_SHARDS} chips: "
+              f"{sims['v5e']:.6f} ms on the reference's default SystemSpec "
+              f"(a TPU v5e ChipSpec: configured), {sims['h100-sxm']:.6f} ms "
+              f"with the H100 datasheet ChipSpec; measured "
+              f"{rep.device_ms:.4f} ms on 4 shards of one card")
     calls = 2 + mgmark.REPEATS
     check(all(total[k] == path[k] * calls for k in total),
           f"launch counters {total} are not {calls} x the checked runs' "
           f"{path}")
-    print(f"  {len(reports)} runs in {wall:.1f} s (inputs, oracles and "
-          f"timing included); kernel launches of the checked runs {path}")
-    return rows, path
+    ratios = {label: mgmark.validate(reports, spec)
+              for label, spec in specs.items()}
+    for label, vs in ratios.items():
+        print(f"  D-mode SIMULATED / analytic bound on {label}: " + "; ".join(
+            f"{v['name']} {v['ratio']:.3f}" for v in vs))
+        check(all(math.isfinite(v["ratio"]) and v["ratio"] > 0 for v in vs),
+              f"sim/bound ratios on {label}: {vs}")
+    lessons = mgmark.lessons(reports)
+    for line in lessons:
+        print("  lesson " + line)
+    print(f"  {len(reports)} runs in {wall:.1f} s (inputs, oracles, timing "
+          f"and traces included); kernel launches of the checked runs {path}")
+    return rows, path, {"ratios": ratios, "lessons": lessons}
 
 
 def _grads(api, optim, params, cfg, batch):
@@ -1361,7 +1424,7 @@ def phase_loop(train_step_ms: float):
     import torch
     from repro_torch.core import (ChipSpec, SystemSpec, analyze, build_terms,
                                   cost_analysis, matmul_flops, simulate)
-    from repro_torch.core.hlo import count_ops
+    from repro_torch.core.hlo import kernel_ops
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import api, get_config
@@ -1487,15 +1550,16 @@ def phase_loop(train_step_ms: float):
     cost = analyze(umode.make_train_step(cfg, optim.OptConfig()), state,
                    batch)
     trace_s = time.perf_counter() - t0
-    kernel_ops = {k: v for k, v in count_ops(cost).items()
-                  if not k.startswith("aten.")}
-    check(kernel_ops == per_step, f"traced kernel ops {kernel_ops}, the "
-                                  f"launch counters' step {per_step}")
+    traced_kernels = kernel_ops(cost.trace)
+    check(traced_kernels == per_step, f"traced kernel ops {traced_kernels}, "
+                                      f"the launch counters' step {per_step}")
     d = cfg.d_model
     mm_params = L * (d * (2 * cfg.q_dim + 2 * cfg.kv_dim) + 3 * d * cfg.d_ff) \
         + d * cfg.padded_vocab
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    want_mm = 3 * 2 * mm_params * tokens         # forward, dX and dW
+    # forward, dX and dW; then the chunked loss's checkpointed chunks make
+    # their logits again in the backward: one more unembedding forward
+    want_mm = 3 * 2 * mm_params * tokens + 2 * tokens * d * cfg.padded_vocab
     check(matmul_flops(cost) == want_mm, f"traced matmul FLOPs "
           f"{matmul_flops(cost)}, from the config {want_mm}")
     sims = {}
@@ -1517,14 +1581,15 @@ def phase_loop(train_step_ms: float):
               f"{terms.t_memory * 1e3:.3f} ms, {terms.dominant}-bound)")
     ratio = sims["h100-sxm"]["sim_step_ms"] / train_step_ms
     analysis = {"trace_s": trace_s, "trace_ops": len(cost.trace),
-                "kernel_ops": kernel_ops, "flops": cost.flops,
+                "kernel_ops": traced_kernels, "flops": cost.flops,
                 "matmul_flops": matmul_flops(cost), "hbm_bytes": cost.hbm_bytes,
                 "simulated": sims, "measured_step_ms_phase8": train_step_ms,
                 "simulated_over_measured_h100": ratio}
     print(f"  traced one train step on meta in {trace_s:.2f} s: "
           f"{len(cost.trace)} ops, {cost.flops:.4g} FLOPs ({want_mm:.4g} in "
-          f"matrix products, as the config counts), {cost.hbm_bytes:.4g} HBM "
-          f"bytes, kernel ops {kernel_ops}")
+          f"matrix products, as the config counts with the chunked loss's "
+          f"recomputed unembedding), {cost.hbm_bytes:.4g} HBM "
+          f"bytes, kernel ops {traced_kernels}")
     print(f"  simulated h100-sxm step / phase 8's measured median step "
           f"({train_step_ms:.1f} ms): {ratio:.3f}")
 
@@ -1574,7 +1639,7 @@ def main() -> int:
     for arch, phase in (("qwen2-1.5b", 3), ("mamba2-1.3b", 5)):
         serve[arch] = phase_serve(arch, phase)
         phase_f32(arch, phase + 1)
-    mgmark_rows, mgmark_launches = phase_mgmark()
+    mgmark_rows, mgmark_launches, mgmark_sim = phase_mgmark()
     train, train_launches = phase_train()
     loop_phase, loop_launches = phase_loop(train["steps"]["step_ms_median"])
     # (shape, dtype) of each kernel's row in the kernels line
@@ -1653,7 +1718,8 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"device": name, "kernels": kernels, "serve": serve,
-         "mgmark": mgmark_rows, "train": train, **loop_phase,
+         "mgmark": mgmark_rows, "mgmark_simulated": mgmark_sim,
+         "train": train, **loop_phase,
          "seconds": time.perf_counter() - t0},
         indent=1))
     smi = subprocess.run(

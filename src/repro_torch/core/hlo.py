@@ -33,8 +33,28 @@ one compute ``TraceOp`` per aten op that does work, in program order
   bounds), and returns empty meta outputs: the trace describes the
   program the card runs.  CPU tensors run the kernels' plain versions,
   which trace as aten ops; CUDA tensors raise (trace on ``meta``).
-* Collectives (``patterns/mesh.py``'s counted copies) are not traced
-  yet: a traced program that reaches one raises ``NotImplementedError``.
+* Collectives: ``record_collective`` (called by ``patterns/mesh.py``'s
+  collectives inside ``analyze``) and DTensor's functional collectives
+  (``_c10d_functional.*``, ``_dtensor.shard_dim_alltoall``, which the
+  tracer sees once it hands DTensor ops back to DTensor to desugar into
+  local ops) each add a ``CollectiveRecord`` and a ``TraceOp("collective",
+  ...)``, in the reference's conventions: ``payload_bytes`` the operand
+  bytes of one device (the output bytes for ``all-gather``), groups the
+  whole mesh, or the sorted members of a permute's pairs as one group
+  (``repro/core/hlo.py:441-452``).
+* One device's program: a D-mode program holds every shard's ops.  Its
+  shards carry a tag (``tag``, an attribute set by ``Mesh.shard`` /
+  ``replicate`` on ``meta``); an op's outputs take its operands' shard, and each op goes
+  to that shard's trace (``HloCost.shards``).  The trace handed to the
+  simulator is shard 0's, the collectives in program order included, as
+  the reference's HLO is one device's SPMD program.  An op whose operands
+  carry no shard (a constant made from host data) goes to no device and
+  is counted in ``HloCost.unattributed``; an op that mixes two shards
+  raises.  ``asymmetric_shards`` lists the shards whose trace differs
+  from shard 0's.  A U-mode trace (``patterns/unified.py``) tags rank 0's
+  local tensors as shard 0, so DTensor's own work on placeholders (its
+  sharding propagation) stays off the trace, among the unattributed ops.
+  A program with no tagged input (one device) traces whole.
 
 On ``meta`` a program allocates nothing, so a full-size model traces on
 a host without its weights.  ``cost_analysis(cost)`` hands
@@ -44,6 +64,7 @@ a host without its weights.  ``cost_analysis(cost)`` hands
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import typing
@@ -85,6 +106,11 @@ class HloCost:
     collectives: typing.List[CollectiveRecord] = dataclasses.field(default_factory=list)
     trace: typing.List[TraceOp] = dataclasses.field(default_factory=list)
     unknown_trip_counts: int = 0
+    # the port's own: every shard's trace of a sharded program, and the
+    # names of the ops no shard owns (``analyze``)
+    shards: typing.Dict[int, typing.List[TraceOp]] = dataclasses.field(
+        default_factory=dict)
+    unattributed: typing.List[str] = dataclasses.field(default_factory=list)
 
     @property
     def collective_bytes(self) -> float:
@@ -146,31 +172,108 @@ def _matmul_flops(name: str, args, out) -> float:
     return fwd * sum(bool(m) for m in args[-1][:2])
 
 
-class _Tracer(TorchDispatchMode):
-    def __init__(self) -> None:
-        super().__init__()
-        self.cost = HloCost()
+# DTensor's functional collectives (rank-local ops) -> the reference's kinds;
+# wait_tensor and _wrap_tensor_autograd move nothing
+FUNCTIONAL_COLLECTIVES = {
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "shard_dim_alltoall": "all-to-all"}
+_FREE_FUNCTIONAL = frozenset({"wait_tensor", "_wrap_tensor_autograd"})
 
-    def record(self, name: str, flops: float, hbm_bytes: float) -> None:
-        self.cost.flops += flops
-        self.cost.hbm_bytes += hbm_bytes
-        self.cost.trace.append(TraceOp("compute", name, flops=float(flops),
-                                       hbm_bytes=float(hbm_bytes)))
+def tag(t: torch.Tensor, shard: int) -> None:
+    """Mark ``t`` as mesh shard ``shard``'s (``Mesh`` does it on
+    ``meta``); the tracer passes the mark on to what ops make of it."""
+    t._mesh_shard = shard
+
+
+def _tag_of(t: torch.Tensor) -> typing.Optional[int]:
+    return getattr(t, "_mesh_shard", None)
+
+
+def _shard_of(tensors) -> typing.Optional[int]:
+    shards = {_tag_of(t) for t in tensors} - {None}
+    if len(shards) > 1:
+        raise ValueError(f"an op mixes the tensors of shards {sorted(shards)}: "
+                         f"the program is not one program per shard")
+    return shards.pop() if shards else None
+
+
+class _Tracer(TorchDispatchMode):
+    def __init__(self, shards: typing.Iterable[int] = ()) -> None:
+        super().__init__()
+        self.cost = HloCost(shards={i: [] for i in sorted(set(shards))})
+        self.sharded = bool(self.cost.shards)
+        self.paused = 0
+
+    def _append(self, op: TraceOp, shard: typing.Optional[int]) -> None:
+        if not self.sharded:
+            self.cost.trace.append(op)
+        elif shard is None:
+            self.cost.unattributed.append(op.name)
+        else:
+            self.cost.shards.setdefault(shard, []).append(op)
+
+    def record(self, name: str, flops: float, hbm_bytes: float,
+               shard: typing.Optional[int] = None) -> None:
+        self._append(TraceOp("compute", name, flops=float(flops),
+                             hbm_bytes=float(hbm_bytes)), shard)
+
+    def record_collective(self, rec: CollectiveRecord) -> None:
+        """One collective, which every device issues: in every shard's
+        trace of a sharded program."""
+        self.cost.collectives.append(rec)
+        op = TraceOp("collective", rec.op_name, collective=rec)
+        if not self.sharded:
+            self.cost.trace.append(op)
+        for trace in self.cost.shards.values():
+            trace.append(op)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(c.__name__ == "DTensor" for t in types for c in t.__mro__):
+            # let DTensor desugar the op into this rank's local ops and
+            # collectives, which come back here
+            return NotImplemented
         out = func(*args, **kwargs)
-        name = func.overloadpacket.__name__
-        if name in FREE_OPS:
+        if self.paused:             # inside a mesh collective
             return out
         ins = [t for t in tree_leaves((args, kwargs))
                if isinstance(t, torch.Tensor)]
         outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+        shard = _shard_of(ins) if self.sharded else None
+        if shard is not None:
+            for t in outs:
+                tag(t, shard)
+        ns, name = func.namespace, func.overloadpacket.__name__
+        if ns in ("_c10d_functional", "_dtensor"):
+            if name in FUNCTIONAL_COLLECTIVES:
+                self._functional_collective(func, name, args, ins, outs)
+            elif name not in _FREE_FUNCTIONAL:
+                raise NotImplementedError(f"{func}: a collective the tracer "
+                                          f"does not price")
+            return out
+        if name in FREE_OPS:
+            return out
         flops = (_matmul_flops(name, args, out) if name in MATMUL_OPS
                  else sum(t.numel() for t in outs))
         self.record(str(func), flops,
-                    sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs))
+                    sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs),
+                    shard)
         return out
+
+    def _functional_collective(self, func, name, args, ins, outs) -> None:
+        from torch.distributed.distributed_c10d import _resolve_process_group
+        group = _resolve_process_group(args[-1])
+        n = group.size()
+        kind = FUNCTIONAL_COLLECTIVES[name]
+        in_b = sum(_nbytes(t) for t in ins)
+        out_b = sum(_nbytes(t) for t in outs)
+        self.record_collective(CollectiveRecord(
+            kind, str(func), out_b if kind == "all-gather" else in_b, in_b,
+            out_b, [list(range(n))]))
 
 
 _ACTIVE: typing.List[_Tracer] = []      # the analyze() calls in progress
@@ -181,28 +284,87 @@ def tracing() -> bool:
     return bool(_ACTIVE)
 
 
-def record(name: str, flops: float, hbm_bytes: float) -> None:
-    """Append one compute ``TraceOp`` to the innermost ``analyze``'s
-    trace: how a hand-written kernel enters it (``kernels.ops``)."""
+def _innermost(what: str) -> _Tracer:
     if not _ACTIVE:
-        raise RuntimeError(f"{name}: a kernel is traced only inside "
+        raise RuntimeError(f"{what}: traced only inside "
                            f"repro_torch.core.hlo.analyze")
-    _ACTIVE[-1].record(name, flops, hbm_bytes)
+    return _ACTIVE[-1]
+
+
+def record(name: str, flops: float, hbm_bytes: float,
+           inputs: typing.Sequence = ()) -> None:
+    """Append one compute ``TraceOp`` to the innermost ``analyze``'s
+    trace: how a hand-written kernel enters it (``kernels.ops``).  In a
+    sharded program the op goes to the shard of ``inputs`` (its tensor
+    operands; its meta outputs, made from them, take it as ops do)."""
+    tracer = _innermost(name)
+    shard = _shard_of([t for t in inputs if isinstance(t, torch.Tensor)]) \
+        if tracer.sharded else None
+    tracer.record(name, flops, hbm_bytes, shard)
+
+
+def record_collective(kind: str, operand_bytes: int, output_bytes: int,
+                      groups: typing.List[typing.List[int]],
+                      name: str = "") -> CollectiveRecord:
+    """Append one collective to the innermost ``analyze``: a
+    ``CollectiveRecord`` (payload the operand bytes, the output bytes for
+    ``all-gather``, as the reference's parser) and its ``TraceOp``."""
+    tracer = _innermost(kind)
+    rec = CollectiveRecord(
+        kind, name or f"{kind}.{len(tracer.cost.collectives)}",
+        int(output_bytes if kind == "all-gather" else operand_bytes),
+        int(operand_bytes), int(output_bytes), [list(g) for g in groups])
+    tracer.record_collective(rec)
+    return rec
+
+
+@contextlib.contextmanager
+def paused():
+    """Inside ``analyze``: the ops run here are not recorded (a mesh
+    collective's own copies, which its ``CollectiveRecord`` stands
+    for).  Outside ``analyze``: nothing."""
+    tracer = _ACTIVE[-1] if _ACTIVE else None
+    if tracer is not None:
+        tracer.paused += 1
+    try:
+        yield
+    finally:
+        if tracer is not None:
+            tracer.paused -= 1
 
 
 def analyze(fn, *args, **kwargs) -> HloCost:
     """The cost trace of ``fn(*args, **kwargs)``: one ``TraceOp`` per aten
-    op that does work and per hand-written kernel call, in program order
-    (backward ops included, where ``fn`` differentiates).  Pass ``meta``
-    tensors to trace a program without running it."""
-    tracer = _Tracer()
+    op that does work, per hand-written kernel call and per collective,
+    in program order (backward ops included, where ``fn``
+    differentiates).  Pass ``meta`` tensors to trace a program without
+    running it.  If an argument carries a shard tag (a D-mode program's
+    shards, placed by ``Mesh`` on ``meta``), the trace is shard 0's and
+    ``HloCost.shards`` holds every shard's."""
+    # a DTensor's shard is its local tensor's
+    leaves = [getattr(t, "_local_tensor", t) for t in tree_leaves(
+        (args, kwargs)) if isinstance(t, torch.Tensor)]
+    tracer = _Tracer(_tag_of(t) for t in leaves if _tag_of(t) is not None)
     _ACTIVE.append(tracer)
     try:
         with tracer:
             fn(*args, **kwargs)
     finally:
         _ACTIVE.pop()
-    return tracer.cost
+    cost = tracer.cost
+    if tracer.sharded:
+        cost.trace = list(cost.shards.get(0, []))
+    compute = [op for op in cost.trace if op.kind == "compute"]
+    cost.flops = sum(op.flops for op in compute)
+    cost.hbm_bytes = sum(op.hbm_bytes for op in compute)
+    return cost
+
+
+def asymmetric_shards(cost: HloCost) -> typing.List[int]:
+    """The shards whose trace (op names, FLOPs, bytes, collectives)
+    differs from shard 0's: empty for an SPMD program."""
+    base = cost.shards.get(0, [])
+    return sorted(i for i, ops in cost.shards.items() if ops != base)
 
 
 def cost_analysis(cost: HloCost) -> dict:
@@ -217,6 +379,16 @@ def matmul_flops(cost: HloCost) -> float:
     return sum(op.flops for op in cost.trace
                if op.name.startswith("aten.")
                and op.name.split(".")[1] in MATMUL_OPS)
+
+
+def kernel_ops(trace: typing.Iterable[TraceOp]) -> typing.Dict[str, int]:
+    """{kernel name: how many} of the hand-written kernel calls in a
+    trace (its compute ops that are no aten op)."""
+    out: typing.Dict[str, int] = {}
+    for op in trace:
+        if op.kind == "compute" and not op.name.startswith("aten."):
+            out[op.name] = out.get(op.name, 0) + 1
+    return out
 
 
 def count_ops(cost: HloCost) -> typing.Dict[str, int]:

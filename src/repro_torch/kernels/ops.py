@@ -74,10 +74,11 @@ def _kernel(wrapper, launch, meta, *args, **kwargs):
     counted: ``meta(*args, **kwargs)`` gives the kernel's (operations,
     bytes, outputs), recorded as one ``TraceOp`` named after the wrapper,
     and the outputs, empty meta tensors of the kernel's shapes and
-    dtypes, are returned."""
+    dtypes, are returned.  In a sharded trace the op belongs to its
+    tensor arguments' shard."""
     if args[0].device.type == "meta":
         ops, nbytes, out = meta(*args, **kwargs)
-        hlo.record(wrapper.__name__, ops, nbytes)
+        hlo.record(wrapper.__name__, ops, nbytes, inputs=args)
         return out
     out = launch(*args, **kwargs)
     wrapper.launches += 1

@@ -10,6 +10,8 @@ from __future__ import annotations
 import typing
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 
@@ -97,10 +99,55 @@ def forward(p: Params, cfg: ModelConfig, tokens):
     return L.unembed(p, h, cfg), 0.0
 
 
+# loss_fn takes the chunked cross-entropy from padded_vocab * S on (the
+# reference's switch, repro/models/transformer.py:166), in chunks of
+# XENT_CHUNK positions
+XENT_CHUNK_THRESHOLD = 1 << 26
+XENT_CHUNK = 512
+
+
+def _xent_chunk(p: Params, cfg: ModelConfig, hc, tc, mc):
+    """(masked nll sum, mask sum) of one chunk, its logits made here."""
+    logits = L.unembed(p, hc, cfg)                  # (B, chunk, Vp) f32
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tc[..., None].long())[..., 0]
+    return torch.sum((logz - gold) * mc), torch.sum(mc)
+
+
+def _chunked_xent(p: Params, cfg: ModelConfig, h, targets, mask=None,
+                  chunk: int = XENT_CHUNK):
+    """Cross-entropy without the whole (B, S, Vp) logits (port of
+    ``repro/models/transformer.py:127 _chunked_xent``): unembed and
+    logsumexp a chunk of positions at a time, each chunk checkpointed, so
+    its logits are made again in the backward and no (B, S, Vp) tensor
+    lives across the step.  S is padded to a multiple of ``chunk``, the
+    padding masked out; the mask defaults to ones in h's dtype."""
+    B, S, d = h.shape
+    pad = (-S) % chunk
+    if mask is None:
+        mask = torch.ones((B, S), dtype=h.dtype, device=h.device)
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    nc = (S + pad) // chunk
+    parts = [checkpoint(_xent_chunk, p, cfg, hc, tc, mc,
+                        use_reentrant=False, preserve_rng_state=False)
+             for hc, tc, mc in zip(h.reshape(B, nc, chunk, d).unbind(1),
+                                   targets.reshape(B, nc, chunk).unbind(1),
+                                   mask.reshape(B, nc, chunk).unbind(1))]
+    nlls, counts = (torch.stack(t) for t in zip(*parts))
+    return torch.sum(nlls) / torch.clamp(torch.sum(counts), min=1)
+
+
 def loss_fn(p: Params, cfg: ModelConfig, batch):
     """Mean next-token NLL of ``batch`` ({"tokens", "targets"[, "mask"]});
-    a dense model adds no auxiliary term."""
+    chunked (``_chunked_xent``) once ``padded_vocab * S`` reaches
+    ``XENT_CHUNK_THRESHOLD``.  A dense model adds no auxiliary term."""
     h, _ = _hidden(p, cfg, batch["tokens"])
+    if cfg.padded_vocab * h.shape[1] >= XENT_CHUNK_THRESHOLD:
+        return _chunked_xent(p, cfg, h, batch["targets"], batch.get("mask"),
+                             XENT_CHUNK)
     logits = L.unembed(p, h, cfg)
     return L.cross_entropy(logits, batch["targets"], batch.get("mask"))
 

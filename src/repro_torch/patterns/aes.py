@@ -14,7 +14,8 @@ import functools
 import numpy as np
 import torch
 
-from .mesh import DEV, Program, shard_map
+from .mesh import DEV, shard_map
+from .unified import local, unified
 
 PATTERN = "partitioned"
 
@@ -90,16 +91,19 @@ _SHIFT_IDX = np.array([(i + 4 * (i % 4)) % 16 for i in range(16)])
 
 
 def _xtime(a):
-    return (a << 1) ^ torch.where((a & 0x80) != 0, 0x1B, 0).to(torch.uint8)
+    # xor 0x1B where the top bit falls off; no constant tensors, so every
+    # op of the program descends from its operands
+    return (a << 1) ^ ((a >> 7) * 0x1B)
 
 
 def encrypt_blocks(blocks, round_keys, sbox_table):
     """blocks (N,16) uint8, round_keys (15,16), sbox (256,) -> (N,16)."""
     shift = torch.as_tensor(_SHIFT_IDX, device=blocks.device)
     st = blocks ^ round_keys[0]
-
-    def sub_shift(st):
-        return sbox_table[st.long()][:, shift]
+    # SubBytes and ShiftRows act on each block alone, with the table and
+    # the row shifts whole
+    sub_shift = local(lambda st, table, shift: table[st.long()][:, shift],
+                      (DEV, None, None), DEV)
 
     def mix(st):
         s = st.reshape(-1, 4, 4)                    # columns (N, col, row)
@@ -112,8 +116,8 @@ def encrypt_blocks(blocks, round_keys, sbox_table):
         return torch.stack([b0, b1, b2, b3], dim=2).reshape(-1, 16)
 
     for rnd in range(1, 14):
-        st = mix(sub_shift(st)) ^ round_keys[rnd]
-    return sub_shift(st) ^ round_keys[14]
+        st = mix(sub_shift(st, sbox_table, shift)) ^ round_keys[rnd]
+    return sub_shift(st, sbox_table, shift) ^ round_keys[14]
 
 
 # --------------------------------------------------------------------------
@@ -148,7 +152,8 @@ def default_size(n_devices: int) -> int:
 
 
 def make_umode(mesh):
-    return Program(encrypt_blocks, mesh)
+    return unified(encrypt_blocks, mesh, in_specs=(DEV, None, None),
+                   out_specs=DEV)
 
 
 def make_dmode(mesh):

@@ -26,7 +26,8 @@ import torch
 
 from repro_torch.kernels import ops
 
-from .mesh import DEV, Program, shard_map
+from .mesh import DEV, shard_map
+from .unified import local, unified
 
 PATTERN = "irregular"
 BLOCK = 2048                        # the TPU API's block: the block kernel's tile
@@ -93,7 +94,9 @@ def sort(x):
 
 
 def make_umode(mesh):
-    return Program(sort, mesh)
+    # the kernels take the whole array
+    return unified(local(sort, (None,), None), mesh, in_specs=(DEV,),
+                   out_specs=DEV)
 
 
 def make_dmode(mesh):
@@ -117,8 +120,10 @@ def make_dmode(mesh):
                     # the shard index here
                     asc = (idx & (size // Ll)) == 0
                     low_side = idx < (idx ^ shard_dist)
-                    new.append(torch.minimum(x, other) if low_side == asc
-                               else torch.maximum(x, other))
+                    # both sides on every shard, as the reference's
+                    # jnp.where(take_min, minimum, maximum)
+                    lo, hi = torch.minimum(x, other), torch.maximum(x, other)
+                    new.append(lo if low_side == asc else hi)
                 xs = new
             else:
                 xs = [_run(x, step, tile, offset=i * Ll)

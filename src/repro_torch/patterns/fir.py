@@ -11,7 +11,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .mesh import DEV, Program, shard_map
+from .mesh import DEV, shard_map
+from .unified import unified
 
 PATTERN = "adjacent"
 TAPS = 16
@@ -22,7 +23,7 @@ def _fir_local(x, taps):
     x[i + T-1 - j]."""
     T = taps.shape[0]
     n = x.shape[0] - (T - 1)
-    y = torch.zeros(n, dtype=x.dtype, device=x.device)
+    y = x.new_zeros(n)
     for j in range(T):
         y = y + taps[j] * x[T - 1 - j:T - 1 - j + n]
     return y
@@ -39,7 +40,7 @@ def default_size(n_devices: int) -> int:
 def make_umode(mesh):
     def fn(x, taps):
         return _fir_local(F.pad(x, (TAPS - 1, 0)), taps)
-    return Program(fn, mesh)
+    return unified(fn, mesh, in_specs=(DEV, None), out_specs=DEV)
 
 
 def make_dmode(mesh):
@@ -50,7 +51,9 @@ def make_dmode(mesh):
         # halo: last T-1 samples of the left neighbour (ring, shard 0 zero)
         halo = mesh.ppermute([x[-(T - 1):] for x in xs],
                              [(i, (i + 1) % n) for i in range(n)])
-        halo[0] = torch.zeros_like(halo[0])
+        # every shard masks its halo, shard 0's to zero (the reference's
+        # jnp.where on the axis index: one program for every shard)
+        halo = [h * float(i != 0) for i, h in enumerate(halo)]
         return [_fir_local(torch.cat([h, x]), t)
                 for h, x, t in zip(halo, xs, taps)]
     return shard_map(local, mesh, in_specs=(DEV, None), out_specs=DEV)

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from .mesh import DEV, Program, shard_map
+from .mesh import DEV, shard_map
+from .unified import unified
 
 PATTERN = "gather"
 FEATURES = 256
@@ -37,7 +38,7 @@ def make_umode(mesh):
             g = X.T @ (X @ w - y) / X.shape[0]
             w = w - LR * g
         return w
-    return Program(fn, mesh)
+    return unified(fn, mesh, in_specs=(DEV, None, None), out_specs=None)
 
 
 def make_dmode(mesh):

@@ -12,7 +12,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .mesh import DEV, Program, shard_map
+from .mesh import DEV, shard_map
+from .unified import unified
 
 PATTERN = "partitioned"
 FEATURES = 32
@@ -53,14 +54,16 @@ def make_umode(mesh):
     def fn(pts, cent):
         sums, counts, _ = _assign_and_sum(pts, cent)
         return _centroids(sums, counts)
-    return Program(fn, mesh)
+    return unified(fn, mesh, in_specs=(DEV, None), out_specs=None)
 
 
 def make_dmode(mesh):
     def local(pts, cents):
         parts = [_assign_and_sum(p, c) for p, c in zip(pts, cents)]
-        sums = mesh.psum([s for s, _, _ in parts])
-        counts = mesh.psum([c for _, c, _ in parts])
+        # one all-reduce of both partials, as XLA combines the reference's
+        # two psums
+        sums, counts = mesh.psum([s for s, _, _ in parts],
+                                 [c for _, c, _ in parts])
         return [_centroids(s, c) for s, c in zip(sums, counts)]
     return shard_map(local, mesh, in_specs=(DEV, None), out_specs=None)
 

@@ -15,6 +15,12 @@ reference's HLO parser counts them (operand bytes per device), so the
 counts compare like with like with the reference's ``collective_bytes``.
 Nothing here moves a shard to the CPU unless the mesh's devices are the
 CPU's.
+
+Inside ``repro_torch.core.hlo.analyze``, on ``meta`` shards (placed by
+``shard`` / ``replicate``, which tag shard i's tensors for the tracer),
+each collective also records one ``CollectiveRecord`` for the program
+of every shard, and its own copies are not traced; the counter reads the
+same bytes traced or not.
 """
 from __future__ import annotations
 
@@ -59,14 +65,22 @@ class Mesh:
     def reset_bytes(self) -> None:
         self.bytes_by_kind = {}
 
-    def _count(self, kind: str, xs: Shards) -> None:
-        if hlo.tracing():
-            raise NotImplementedError(
-                f"{kind} inside repro_torch.core.hlo.analyze: the tracer "
-                f"records no collectives yet (ROADMAP §1 item 1)")
-        per_device = xs[0].numel() * xs[0].element_size()
+    def _count(self, kind: str, xs: Shards, groups=None) -> None:
+        per_device = sum(x.numel() * x.element_size() for x in xs)
         self.bytes_by_kind[kind] = self.bytes_by_kind.get(kind, 0.0) \
             + float(per_device)
+        if hlo.tracing():
+            hlo.record_collective(kind, per_device, per_device,
+                                  groups or [list(range(self.size))])
+
+    def _to(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        """A copy of ``x`` on device i (on ``meta``, a meta copy tagged as
+        shard i's)."""
+        if x.device.type != "meta":
+            return x.to(self.devices[i], copy=True)
+        out = x.clone()
+        hlo.tag(out, i)
+        return out
 
     def _check(self, xs: Shards) -> None:
         if len(xs) != self.size:
@@ -83,12 +97,12 @@ class Mesh:
         if x.shape[0] % self.size:
             raise ValueError(f"dimension 0 of {tuple(x.shape)} does not "
                              f"split over {self.size} shards")
-        return [c.to(d, copy=True).contiguous()
-                for c, d in zip(x.chunk(self.size), self.devices)]
+        return [self._to(c, i).contiguous()
+                for i, c in enumerate(x.chunk(self.size))]
 
     def replicate(self, x: torch.Tensor) -> Shards:
         """A copy of ``x`` on every device (``P(None)``)."""
-        return [x.to(d, copy=True) for d in self.devices]
+        return [self._to(x, i) for i in range(self.size)]
 
     def put(self, x, spec) -> Shards:
         x = torch.as_tensor(x)
@@ -106,27 +120,44 @@ class Mesh:
     def ppermute(self, xs: Shards, perm) -> Shards:
         """``jax.lax.ppermute``: shard ``dst`` receives a copy of shard
         ``src`` for each pair ``(src, dst)`` of ``perm``; a shard that no
-        pair targets receives zeros."""
+        pair targets receives zeros.  Traced, its group is the pairs'
+        members, as the reference's parser collapses them."""
         self._check(xs)
         out: typing.List[typing.Optional[torch.Tensor]] = [None] * self.size
-        for src, dst in perm:
-            if out[dst] is not None:
-                raise ValueError(f"ppermute: two sources for shard {dst}")
-            out[dst] = xs[src].to(self.devices[dst], copy=True)
-        self._count("collective-permute", xs)
-        return [o if o is not None else
-                torch.zeros_like(xs[i], device=self.devices[i])
-                for i, o in enumerate(out)]
+        with hlo.paused():
+            for src, dst in perm:
+                if out[dst] is not None:
+                    raise ValueError(f"ppermute: two sources for shard {dst}")
+                out[dst] = self._to(xs[src], dst)
+            for i, o in enumerate(out):
+                if o is None:
+                    meta = xs[i].device.type == "meta"
+                    out[i] = torch.zeros_like(
+                        xs[i], device=None if meta else self.devices[i])
+                    if meta:
+                        hlo.tag(out[i], i)
+        self._count("collective-permute", xs[:1],
+                    [sorted({d for pair in perm for d in pair})])
+        return out
 
-    def psum(self, xs: Shards) -> Shards:
+    def psum(self, xs: Shards, *more: Shards):
         """``jax.lax.psum``: every shard receives the sum of all shards
-        (summed in shard order on ``devices[0]``, one result for all)."""
-        self._check(xs)
-        total = xs[0].to(self.devices[0], copy=True)
-        for x in xs[1:]:
-            total += x.to(self.devices[0])
-        self._count("all-reduce", xs)
-        return [total.to(d, copy=True) for d in self.devices]
+        (summed in shard order on ``devices[0]``, one result for all).
+        Given several lists, one all-reduce sums each of them (as XLA's
+        all-reduce combiner merges separate psums into one), and a tuple
+        of lists comes back."""
+        lists = (xs, *more)
+        outs = []
+        with hlo.paused():
+            for ys in lists:
+                self._check(ys)
+                total = ys[0].to(self.devices[0], copy=True) \
+                    if ys[0].device.type != "meta" else ys[0].clone()
+                for y in ys[1:]:
+                    total += y.to(total.device)
+                outs.append([self._to(total, i) for i in range(self.size)])
+        self._count("all-reduce", [ys[0] for ys in lists])
+        return outs[0] if not more else tuple(outs)
 
     def all_to_all(self, xs: Shards, split_axis: int = 0,
                    concat_axis: int = 0) -> Shards:
@@ -139,10 +170,17 @@ class Mesh:
             raise ValueError(f"all_to_all: dimension {split_axis} of "
                              f"{tuple(xs[0].shape)} is not the mesh size "
                              f"{self.size}")
-        out = [torch.stack([x.select(split_axis, q).to(d)
-                            for x in xs], dim=concat_axis).contiguous()
-               for q, d in enumerate(self.devices)]
-        self._count("all-to-all", xs)
+        meta = xs[0].device.type == "meta"
+        out = []
+        with hlo.paused():
+            for q, d in enumerate(self.devices):
+                out.append(torch.stack(
+                    [x.select(split_axis, q) if meta
+                     else x.select(split_axis, q).to(d) for x in xs],
+                    dim=concat_axis).contiguous())
+                if meta:
+                    hlo.tag(out[q], q)
+        self._count("all-to-all", xs[:1])
         return out
 
 
@@ -152,11 +190,15 @@ class Program:
     whole on ``devices[0]``, result as ``fn`` returns it.  Otherwise
     (D-mode, made by ``shard_map``) ``fn`` takes one list of shards per
     argument, placed by ``in_specs`` (``DEV`` or None each), and returns
-    a list of shards that ``out_specs`` gathers."""
+    a list of shards that ``out_specs`` gathers.  ``constraints`` (a
+    U-mode program's, made by ``unified.unified``) are the reference's
+    sharding constraints: (per-argument spec, output spec)."""
 
-    def __init__(self, fn, mesh: Mesh, in_specs=None, out_specs=None):
+    def __init__(self, fn, mesh: Mesh, in_specs=None, out_specs=None,
+                 constraints=None):
         self.fn, self.mesh = fn, mesh
         self.in_specs, self.out_specs = in_specs, out_specs
+        self.constraints = constraints
 
     def place(self, *args):
         if self.in_specs is None:

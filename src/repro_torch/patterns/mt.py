@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from .mesh import DEV, Program, shard_map
+from .mesh import DEV, shard_map
+from .unified import unified
 
 PATTERN = "scatter"
 
@@ -23,7 +24,8 @@ def default_size(n_devices: int) -> int:
 
 
 def make_umode(mesh):
-    return Program(lambda x: x.T.contiguous(), mesh)
+    return unified(lambda x: x.T.contiguous(), mesh, in_specs=(DEV,),
+                   out_specs=DEV)
 
 
 def make_dmode(mesh):

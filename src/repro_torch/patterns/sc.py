@@ -15,7 +15,8 @@ import torch
 
 from repro_torch.kernels import ops, ref
 
-from .mesh import DEV, Program, shard_map
+from .mesh import DEV, shard_map
+from .unified import local, unified
 
 PATTERN = "adjacent"
 K = 3
@@ -31,7 +32,9 @@ def default_size(n_devices: int) -> int:
 
 
 def make_umode(mesh):
-    return Program(ops.stencil2d, mesh)
+    # the kernel takes the whole image
+    return unified(local(ops.stencil2d, (None, None), None), mesh,
+                   in_specs=(DEV, None), out_specs=DEV)
 
 
 def make_dmode(mesh):
@@ -42,8 +45,10 @@ def make_dmode(mesh):
     def local(imgs, kerns):
         top = mesh.ppermute([x[-1:] for x in imgs], down)
         bot = mesh.ppermute([x[:1] for x in imgs], up)
-        top[0] = torch.zeros_like(top[0])
-        bot[n - 1] = torch.zeros_like(bot[n - 1])
+        # every shard masks its halos, the edge shards' to zero (the
+        # reference's jnp.where on the axis index)
+        top = [t * float(i != 0) for i, t in enumerate(top)]
+        bot = [b * float(i != n - 1) for i, b in enumerate(bot)]
         return [ops.stencil2d(torch.cat([t, x, b]), k)[1:-1]
                 for t, x, b, k in zip(top, imgs, bot, kerns)]
     return shard_map(local, mesh, in_specs=(DEV, None), out_specs=DEV)

@@ -473,11 +473,43 @@ def test_wrappers_trace_one_op_on_meta(name):
 
 
 def test_traced_mesh_collective_raises():
+    """A mesh collective inside ``analyze`` records one all-reduce (it
+    raised before the tracer had collectives); a functional collective the
+    tracer does not price still raises, naming it."""
     mesh = Mesh(["cpu"] * 2)
     xs = [torch.ones(4), torch.ones(4)]
-    with pytest.raises(NotImplementedError, match="all-reduce"):
-        hlo.analyze(mesh.psum, xs)
+    cost = hlo.analyze(mesh.psum, xs)
+    assert [(c.kind, c.payload_bytes, c.groups) for c in cost.collectives] \
+        == [("all-reduce", 16, [[0, 1]])]
+    assert [op.kind for op in cost.trace] == ["collective"]
     assert mesh.psum(xs)[0].tolist() == [2.0] * 4       # untraced: fine
+    from torch.distributed import _functional_collectives as funcol
+    from repro_torch.patterns.unified import fake_mesh
+    with fake_mesh(2) as dm:
+        with pytest.raises(NotImplementedError, match="broadcast"):
+            hlo.analyze(lambda t: funcol.broadcast(t, 0, dm),
+                        torch.empty(4, device="meta"))
+
+
+def test_chunked_loss_train_step_recomputes_the_unembed(monkeypatch):
+    """With the chunked loss (threshold lowered), a train step's products
+    are the unchunked step's plus one more unembedding forward (each
+    checkpointed chunk made again in the backward): the count phase 9(b)
+    of chip_smoke.py holds the full-width step to."""
+    from repro_torch.models import transformer
+    cfg = get_config(ARCH).replace(attn_impl="flash")
+    B, S = 4, 32
+    monkeypatch.setattr(transformer, "XENT_CHUNK_THRESHOLD", 1)
+    monkeypatch.setattr(transformer, "XENT_CHUNK", 8)
+    state = optim.init_state(api.init(0, cfg, device="meta"))
+    cost = hlo.analyze(umode.make_train_step(cfg, optim.OptConfig()),
+                       state, _batch("meta", B, S))
+    tokens = B * S
+    assert hlo.matmul_flops(cost) == 3 * 2 * _matmul_params(cfg) * tokens \
+        + 2 * tokens * cfg.d_model * cfg.padded_vocab
+    assert _kernel_ops(cost) == {
+        "flash_attention": 2, "flash_attention_bwd": 2, "rmsnorm": 1,
+        "rmsnorm_bwd": 1, "add_rmsnorm": 4, "add_rmsnorm_bwd": 4}
 
 
 def test_quickstart_torch_on_cpu():

@@ -1,6 +1,7 @@
 """repro_torch.patterns.mesh: the shard mesh's collectives vs JAX's
 ``shard_map`` collectives on 4 fake XLA CPU devices, and their byte
-counts vs the reference's HLO parser (``repro.core.analyze``).
+counts and traced records (``repro_torch.core.hlo.analyze`` on meta
+shards) vs the reference's HLO parser (``repro.core.analyze``).
 
 The JAX side runs once for the file, in one subprocess with 4 devices
 (``conftest.run_with_devices``), and writes an ``.npz`` the tests read.
@@ -14,6 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from conftest import run_with_devices  # noqa: E402
+from repro_torch.core import hlo  # noqa: E402
 from repro_torch.patterns.mesh import DEV, Mesh, shard_map  # noqa: E402
 
 M = 4
@@ -70,7 +72,10 @@ for name, (kind, kw) in cases.items():
     out[name] = np.asarray(compiled(x))
     cost = analyze(compiled.as_text())
     meta[name] = {{"bytes": cost.collective_bytes,
-                  "by_kind": cost.collective_bytes_by_kind()}}
+                  "by_kind": cost.collective_bytes_by_kind(),
+                  "records": [[c.kind, c.payload_bytes, c.operand_bytes,
+                               c.output_bytes, c.groups, c.count]
+                              for c in cost.collectives]}}
 np.savez({path!r}, **out)
 print("META", json.dumps(meta))
 """
@@ -87,16 +92,29 @@ def jax_side(tmp_path_factory):
         return {k: f[k] for k in f.files}, meta
 
 
-def _run(mesh, name):
+def _prog(mesh, name):
     kind, kw = CASES[name]
 
     def local(xs):
         if kind == "all_to_all" and kw["split_axis"] == 2:
             xs = [x.reshape(x.shape[0], x.shape[1], M, -1) for x in xs]
         return getattr(mesh, kind)(xs, **kw)
-    prog = shard_map(local, mesh, in_specs=(DEV,), out_specs=DEV)
+    return shard_map(local, mesh, in_specs=(DEV,), out_specs=DEV)
+
+
+def _run(mesh, name):
+    prog = _prog(mesh, name)
     mesh.reset_bytes()
     return prog.gather(prog(*prog.place(_input())))
+
+
+def _trace(mesh, name):
+    """The collective's program traced on meta shards (placed by the
+    mesh, which tags them), with the counter read around it."""
+    prog = _prog(mesh, name)
+    placed = prog.place(torch.empty(SHAPE, device="meta"))
+    mesh.reset_bytes()
+    return hlo.analyze(prog, *placed)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -114,6 +132,65 @@ def test_bytes_match_the_reference_hlo_count(jax_side, name):
     want = jax_side[1][name]
     assert mesh.collective_bytes == want["bytes"]
     assert mesh.bytes_by_kind == want["by_kind"]
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_traced_records_match_the_reference_hlo(jax_side, name):
+    """One ``CollectiveRecord`` a collective, as the reference's parser
+    writes it: kind, payload (operand bytes), operand and output bytes,
+    groups (a permute's pairs' members as one group), count."""
+    cost = _trace(Mesh(["cpu"] * M), name)
+    got = [[c.kind, c.payload_bytes, c.operand_bytes, c.output_bytes,
+            c.groups, c.count] for c in cost.collectives]
+    assert got == jax_side[1][name]["records"]
+    assert [op.kind for op in cost.trace] == ["collective"] * len(got)
+    assert all(ops == cost.trace for ops in cost.shards.values())
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_counter_reads_the_same_bytes_traced_or_not(name):
+    mesh = Mesh(["cpu"] * M)
+    _run(mesh, name)
+    run = dict(mesh.bytes_by_kind)
+    cost = _trace(mesh, name)
+    assert mesh.bytes_by_kind == run == cost.collective_bytes_by_kind()
+
+
+def test_psum_of_several_lists_is_one_all_reduce():
+    """As XLA combines KM's two psums: one record of both operands' bytes,
+    each list summed on its own."""
+    mesh = Mesh(["cpu"] * M)
+    xs = [torch.full((2, 3), float(i)) for i in range(M)]
+    ys = [torch.full((5,), float(i), dtype=torch.float64) for i in range(M)]
+    sx, sy = mesh.psum(xs, ys)
+    assert sx[2].tolist() == [[6.0] * 3] * 2 and sy[0].tolist() == [6.0] * 5
+    assert mesh.bytes_by_kind == {"all-reduce": 24.0 + 40.0}
+    placed = [mesh.put(torch.empty(8, 3, device="meta"), DEV),
+              mesh.put(torch.empty(20, dtype=torch.float64, device="meta"),
+                       DEV)]
+    cost = hlo.analyze(mesh.psum, *placed)
+    assert [(c.kind, c.payload_bytes) for c in cost.collectives] == \
+        [("all-reduce", 24 + 40)]
+
+
+def test_an_op_that_mixes_shards_raises():
+    mesh = Mesh(["cpu"] * M)
+    xs = mesh.put(torch.empty(8, device="meta"), DEV)
+    with pytest.raises(ValueError, match=r"shards \[0, 1\]"):
+        hlo.analyze(lambda xs: xs[0] + xs[1], xs)
+
+
+def test_constants_from_host_data_belong_to_no_shard():
+    """An op with no shard's operand (a table copied from the host) is on
+    no device's trace; it is counted in ``unattributed``."""
+    mesh = Mesh(["cpu"] * M)
+    xs = mesh.put(torch.empty(8, device="meta"), DEV)
+    cost = hlo.analyze(lambda xs: [x + torch.as_tensor(
+        np.arange(2.0, dtype=np.float32), device="meta").sum() for x in xs],
+        xs)
+    assert len(cost.unattributed) == 2 * M       # the copy and its sum
+    assert [op.name for op in cost.trace] == ["aten.add.Tensor"]
+    assert hlo.asymmetric_shards(cost) == []
 
 
 def test_partial_permute_sends_zeros_to_untargeted_shards():
