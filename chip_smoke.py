@@ -17,7 +17,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    each backend the build offers, the fastest recorded, and for its
    backward that call's forward + backward less its forward; for the
    fused norms, the add or the gate and ``F.rms_norm`` as separate calls,
-   and for the norms' backward autograd of them less their forward); each
+   and for the norms' backward autograd of them less their forward; none
+   for SSD and its backward); each
    backward case also prints the device time of each of its launches
    (torch.profiler), and autograd's beside the norms'; the
    forward's log-sum-exp is held to its plain version; the fused norms'
@@ -34,8 +35,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    and the plain path must be identical;
 5. serve  — phase 3 for mamba2-1.3b at full width (bf16, 48 layers): the
    SSD kernel must run once per layer of every prefill, and
-   ``api.loss(...).backward()`` on the kernel path must raise (the SSD
-   and gated-norm kernels have no backward yet);
+   ``api.loss(...).backward()`` on the kernel path must run the SSD and
+   gated-norm backward kernels once a layer and give every param a
+   finite gradient;
 6. f32    — phase 4 for mamba2-1.3b;
 7. mgmark — the seven MGMark workloads in U-mode and D-mode on a 4-shard
    mesh on the card at ``default_size(4)`` (``repro_torch.launch.mgmark``):
@@ -50,8 +52,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
 8. train  — qwen2-1.5b at full width: (a) f32 gradients of ``api.loss``
    (batch 1 x 1024, all 28 layers) on the kernel path against the plain
    path, each param's within TRAIN_F32_TOL of its max |g|; (b) the bf16
-   kernel path's gradients held to the f32 plain path's, no farther than
-   the bf16 plain path's plus TRAIN_BF16_MARGIN; (c) 20 AdamW steps at
+   kernel path's gradients held to the f32 plain path's on two batches,
+   no farther than the bf16 plain path's plus the family's margins
+   (TRAIN_BF16_MARGINS), and planted faults that must fail that gate
+   (TRAIN_BF16_CONTROLS); (c) 20 AdamW steps at
    bf16, batch 2 x 1024, on ``SyntheticLM`` through
    ``repro_torch.launch.train.run``: finite, falling loss, the kernels
    launched as many times as the layer count says, step ms, tokens/s,
@@ -61,15 +65,23 @@ Phases, each of which raises (and so exits non-zero) on failure:
    kept), a failure injected before step 5 and a re-mesh before step 7:
    one restart, one re-mesh, the state restored at step 3 equal to the
    saved one (per-leaf checksums taken on the card) and the replayed
-   step-3 loss equal to the first one, bit for bit, the kernels launched
-   as many times as the steps run say; save, write and restore seconds,
-   bytes written and step ms; (b) one whole train step traced on the
+   step-3 and step-4 losses equal to the first ones, bit for bit, the
+   kernels launched as many times as the steps run say; save, write and
+   restore seconds, bytes written and step ms; (b) one whole train step traced on the
    meta device (``repro_torch.core.analyze``): one trace op per kernel
    call of a step, matrix-product FLOPs equal to the count from the
    config (the chunked loss's recomputed unembedding included), and the
    step SIMULATED on one chip with the reference's v5e
    ChipSpec and with the H100's datasheet, beside phase 8's measured
-   step; (c) ``examples/quickstart_torch.py`` end to end on the card.
+   step; (c) ``examples/quickstart_torch.py`` end to end on the card;
+10. mamba — phases 8 and 9 for mamba2-1.3b at full width (48 layers,
+   through the SSD and gated-norm backward kernels): (a) f32 gradients
+   against the plain path, (b) bf16 gradients held to the f32 plain
+   path, (c) 20 AdamW steps through ``launch.train.run`` with their step
+   ms, tokens/s, device busy, idle share and peak memory, (d) ``loop.run``
+   for 6 steps with a checkpoint at 3 and a failure before step 5, the
+   replayed losses equal to the first ones bit for bit, (e) one train step traced on meta, one op
+   per kernel call, SIMULATED beside (c)'s measured step.
 
 Before the last line it prints ``{"kernels": [...]}`` and the card's name
 and power limit from nvidia-smi; the last line is ``{"ok": true,
@@ -129,6 +141,15 @@ GATED_NORM_DIM = 4096
 SSD_CASES = (("R=4,Q=256", 4, 256), ("R=1,Q=77", 1, 77), ("R=1,Q=1", 1, 1),
              ("R=8,Q=256", 8, 256))
 SSD_TOL = (1e-4, 1e-4)          # tests/test_kernels.py's for this kernel
+# the SSD backward at mamba2-1.3b's heads, (label, R, Q, B/C shared by the
+# heads): phase 10's training shape, batch 2 x 1024 (the main one), a
+# short chunk, one token, and B and C per head; every output within
+# 1e-4 of its max |value| (f32 sums of up to Q products in another order)
+SSD_BWD_CASES = (("R=8,Q=256", 8, 256, True), ("R=1,Q=77", 1, 77, True),
+                 ("R=1,Q=1", 1, 1, True), ("R=2,Q=256,per-head", 2, 256,
+                                           False))
+SSD_BWD_TOL = 1e-4
+GATED_BWD_SHAPE = (2048, 4096)  # mamba2-1.3b's training rows, d_inner
 # stencil2d, (H, W, K, dtype): SC's 4096^2 image (the main shape), bf16,
 # K=5, and a ragged image; f32 atol 1e-5 (the same products in the same
 # order, the kernel's contracted into FMAs)
@@ -190,18 +211,38 @@ F32_PROBE_ATOL = 1e-3           # f32 logits: f32 sums in another order
 # farther from it than the plain path is, and in f32 the kernel path
 # must agree with the plain path within F32_PROBE_ATOL.
 F32_ANCHORED_PROBE = ("mamba2-1.3b",)
-# phase 8.  (a) f32 gradients, kernel path vs plain path, per param:
-# max |diff| <= TRAIN_F32_TOL * max |g| (f32 sums in another order, 28
-# layers deep).  (b) bf16 gradients carry bf16's own rounding through 28
-# layers of random weights, so they are held, as mamba's probe is, to the
-# f32 plain gradients: per param the kernel path's distance (relative to
-# the param's max |g|) may exceed the bf16 plain path's by at most
-# TRAIN_BF16_MARGIN.  (c) AdamW steps: lr 3e-4 (OptConfig's default), the
-# launcher's warmup (steps // 10) and cosine schedule.
+# phase 8 (and 10 for mamba).  (a) f32 gradients, kernel path vs plain
+# path, per param: max |diff| <= TRAIN_F32_TOL * max |g| (f32 sums in
+# another order, 28 or 48 layers deep).  (b) bf16 gradients carry bf16's
+# own rounding through the layers of random weights, so they are held,
+# as mamba's probe is, to the f32 plain gradients, on the batches of
+# each of TRAIN_GRAD_SEEDS: per param, the kernel path's distance to
+# them may exceed the bf16 plain path's by at most a margin, both in
+# max |diff| / max |g| and in ||diff|| / ||g||.  The margins are the
+# model family's (TRAIN_BF16_MARGINS: max-abs, L2).  At mamba2-1.3b's 48
+# layers the max-abs distance, an extreme over up to millions of noisy
+# elements, moves by up to 0.05 between two batches for either path,
+# while the L2 ones of the two paths agree within about 0.006; a bf16
+# rounding of the SSD backward's outputs, or an fp8 rounding of the
+# gated norm's, moves the L2 excess by several times that (PERF.md §6).
+# So the L2 margin sits between them, and each planted fault of
+# TRAIN_BF16_CONTROLS (a backward launcher whose outputs are rounded)
+# must fail the gate.
+# (c) AdamW steps: lr 3e-4 (OptConfig's default), the launcher's warmup
+# (steps // 10) and cosine schedule.
 TRAIN_ARCH = "qwen2-1.5b"
+MAMBA_ARCH = "mamba2-1.3b"
 TRAIN_GRAD_BATCH, TRAIN_GRAD_SEQ = 1, 1024
+TRAIN_GRAD_SEEDS = (1, 2)
 TRAIN_F32_TOL = 1e-4
-TRAIN_BF16_MARGIN = 0.05
+TRAIN_BF16_MARGINS = {"dense": (0.05, 0.01), "ssm": (0.1, 0.01)}
+# family -> (label, launcher module in repro_torch.kernels, launcher,
+# the rounding of its outputs)
+TRAIN_BF16_CONTROLS = {
+    "ssm": (("ssd_chunk_bwd's outputs rounded to bf16", "ssd",
+             "ssd_chunk_bwd", "bf16"),
+            ("gated_rmsnorm_bwd's outputs rounded to fp8 e4m3", "rmsnorm",
+             "gated_rmsnorm_bwd", "fp8"))}
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 20, 2, 1024, 3e-4
 # phase 9.  (a) loop.run at phase 8's shape: a checkpoint every 3 steps,
 # the last one kept (one is 17.8 GB: bf16 params and f32 moments; two
@@ -212,6 +253,10 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 20, 2, 1024, 3e-4
 # f32 CUDA cores, HBM3), beside the reference's default (a TPU v5e).
 LOOP_STEPS, LOOP_CKPT_EVERY, LOOP_KEEP = 8, 3, 1
 LOOP_FAULT_STEP, LOOP_REMESH_STEP = 5, 7
+# phase 10(d): mamba's loop, shorter and with no re-mesh (a checkpoint
+# is 14.5 GB): steps 0..4, a checkpoint at 3, a failure before step 5,
+# steps 3..5 again
+MAMBA_LOOP_STEPS = 6
 H100_CHIP = dict(name="h100-sxm", peak_bf16_flops=989e12,
                  peak_f32_flops=67e12, hbm_bandwidth=HBM_BYTES_PER_S,
                  hbm_capacity=80 * 10 ** 9)
@@ -220,6 +265,8 @@ H100_CHIP = dict(name="h100-sxm", peak_bf16_flops=989e12,
 TRAIN_KERNEL_GROUPS = (
     ("flash_attention_bwd", ("flash_bwd",)),
     ("flash_attention", ("flash_fwd",)),
+    ("ssd_chunk_bwd", ("ssd_bwd",)),
+    ("ssd_chunk_kernel", ("ssd_chunk_kernel",)),
     ("rmsnorm fwd+bwd", ("rmsnorm",)),
     ("gemm", ("nvjet", "gemm", "xmma", "cutlass")),
     ("softmax/loss", ("softmax", "nll_loss", "logsumexp")),
@@ -355,14 +402,16 @@ def phase_kernels():
              "gated_rmsnorm": [], "ssd_chunk_kernel": [], "stencil2d": [],
              "bitonic_stage": [], "bitonic_block": [],
              "flash_attention_bwd": [], "rmsnorm_bwd": [],
-             "add_rmsnorm_bwd": []}
+             "add_rmsnorm_bwd": [], "gated_rmsnorm_bwd": [],
+             "ssd_chunk_bwd": []}
 
     def record(name, shape, dtype, got, want, fn, plain_fn, lib_fn, b,
-               tol=None, **extra):
+               tol=None, per_max=False, **extra):
         """got/want: a tensor or a tuple of tensors; lib_fn None where no
         one PyTorch call computes the function, or {label: fn} of which
         the fastest that runs is recorded, or {label: ms or None} of
-        times taken already."""
+        times taken already.  per_max: each output's atol is tol's atol
+        times that output's max |want|."""
         ms, plain_ms = time_ms(fn), time_ms(plain_fn)
         if isinstance(lib_fn, dict):
             extra["library_ms_by_backend"] = by = {}
@@ -383,8 +432,13 @@ def phase_kernels():
         pairs = list(zip(got, want)) if isinstance(got, tuple) \
             else [(got, want)]
         errs = [(g.float() - w.float()).abs() for g, w in pairs]
-        ok = all(bool((e <= atol + rtol * w.float().abs()).all())
-                 for e, (_, w) in zip(errs, pairs))
+        scale = [w.float().abs().max().item() if per_max else 1.0
+                 for _, w in pairs]
+        ok = all(bool((e <= atol * m + rtol * w.float().abs()).all())
+                 for e, m, (_, w) in zip(errs, scale, pairs))
+        if per_max:
+            extra["max_err_over_max_value"] = max(
+                e.max().item() / max(m, 1e-30) for e, m in zip(errs, scale))
         row = {"shape": shape, "dtype": dtype,
                "max_abs_err": max(e.max().item() for e in errs),
                "atol": atol, "rtol": rtol, "ms": ms, "plain_ms": plain_ms,
@@ -541,6 +595,41 @@ def phase_kernels():
             print_launches("kernel", times)
             print_launches("autograd", lib_times)
 
+    # the gated norm's backward at mamba2-1.3b's training rows.  Bytes: x,
+    # z, dy read once, w read once, dx, dz and dw written once.  Library:
+    # autograd of x * F.silu(z) and F.rms_norm, less their forward.
+    rows, d = GATED_BWD_SHAPE
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        x = torch.randn(rows, d, generator=gen, device="cuda").to(dt)
+        z = (2 * torch.randn(rows, d, generator=gen, device="cuda")).to(dt)
+        w = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dt)
+        dy = torch.randn(rows, d, generator=gen, device="cuda").to(dt)
+        got = rms.gated_rmsnorm_bwd(x, z, w, dy, 1e-6)
+        want = ref.gated_rmsnorm_bwd_ref(x, z, w, dy, 1e-6)
+        torch.cuda.synchronize()
+        xg, zg, wg = (t.detach().requires_grad_() for t in (x, z, w))
+
+        def lib_fwd():
+            return F.rms_norm(xg * F.silu(zg), (d,), wg, 1e-6)
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            lib_fwd(), (xg, zg, wg), dy)) - time_ms(lib_fwd)
+        times = launch_ms(lambda: rms.gated_rmsnorm_bwd(x, z, w, dy, 1e-6))
+        y = lib_fwd()
+        lib_times = launch_ms(lambda: torch.autograd.grad(
+            y, (xg, zg, wg), dy, retain_graph=True))
+        record("gated_rmsnorm_bwd", f"rows={rows},d={d}", dtype, got, want,
+               lambda: rms.gated_rmsnorm_bwd(x, z, w, dy, 1e-6),
+               lambda: ref.gated_rmsnorm_bwd_ref(x, z, w, dy, 1e-6),
+               {"autograd": lib_ms},
+               kbound(cost.gated_rmsnorm_bwd(x, w), dtype),
+               tol=BWD_TOL[dtype],
+               library_calls="x * F.silu(z); F.rms_norm: forward + "
+                             "backward less forward",
+               launch_ms=times, library_launch_ms=lib_times)
+        print_launches("kernel", times)
+        print_launches("autograd", lib_times)
+
     # qwen2-1.5b's d_model; mamba2-1.3b's gated norm over d_inner
     for d, rows_list in ((1536, RMS_ROWS), (4096, RMS_ROWS_MAMBA)):
         for rows in rows_list:
@@ -635,6 +724,34 @@ def phase_kernels():
                kbound(cost.ssd_chunk(x, Bm), "tf32x3"), tol=SSD_TOL,
                bound_ms_f32=kbound(cost.ssd_chunk(x, Bm), "float32")[0],
                max_abs_err_vs_f64=f64)
+
+    # the SSD backward on the same kind of inputs with random incoming
+    # gradients.  Its products are f32 FMAs on the CUDA cores, but the
+    # card does products of f32 accuracy at the 3xTF32 rate, as the
+    # forward does, so that rate bounds it; the f32 CUDA-core bound
+    # stands beside it.  Every output within SSD_BWD_TOL of its max
+    # |value|.  No one PyTorch call computes this function.
+    for label, R, Q, shared in SSD_BWD_CASES:
+        x = randn(R, H, Q, P)
+        dt = F.softplus(randn(R, H, Q))
+        A = -torch.exp(randn(H))
+        cs = torch.cumsum(dt * A[None, :, None], dim=-1)
+        G = 1 if shared else H
+        Bm = randn(R, G, Q, N).expand(R, H, Q, N)
+        Cm = randn(R, G, Q, N).expand(R, H, Q, N)
+        args = (x, dt, cs, Bm, Cm, randn(R, H, Q, P), randn(R, H, N, P))
+        got = ssd.ssd_chunk_bwd(*args)
+        want = ref.ssd_chunk_bwd_ref(*args)
+        torch.cuda.synchronize()
+        times = launch_ms(lambda: ssd.ssd_chunk_bwd(*args))
+        record("ssd_chunk_bwd", label, "float32", got, want,
+               lambda: ssd.ssd_chunk_bwd(*args),
+               lambda: ref.ssd_chunk_bwd_ref(*args), None,
+               kbound(cost.ssd_chunk_bwd(x, Bm), "tf32x3"),
+               tol=(SSD_BWD_TOL, 0.0), per_max=True, launch_ms=times,
+               bound_ms_f32=kbound(cost.ssd_chunk_bwd(x, Bm),
+                                   "float32")[0])
+        print_launches("kernel", times)
 
     # stencil2d: bytes img once in, once out (and the K*K weights); 2 K^2
     # operations per output, f32 math whatever img's dtype.  Library:
@@ -764,11 +881,7 @@ def phase_serve(arch: str, phase: int):
 
     # the backward check draws from its own generator, so the probe and
     # the traffic below stay the ones earlier runs measured
-    if arch in BACKWARD_ARCHS:
-        grad_row = backward_check(api, cfg, params, np.random.default_rng(1))
-    else:
-        refuse_backward(api, cfg, params, np.random.default_rng(1))
-        grad_row = None
+    grad_row = backward_check(api, cfg, params, np.random.default_rng(1))
     rng = np.random.default_rng(0)
     probe = torch.as_tensor(rng.integers(0, cfg.vocab_size, PROBE_LEN),
                             device="cuda")[None]
@@ -855,9 +968,24 @@ def phase_serve(arch: str, phase: int):
     return serve
 
 
-# the archs whose kernels all have a backward, and those kernels
-BACKWARD_ARCHS = ("qwen2-1.5b",)
-BACKWARD_KERNELS = ("flash_attention_bwd", "rmsnorm_bwd", "add_rmsnorm_bwd")
+# the backward kernels, which serving must never launch
+BACKWARD_KERNELS = ("flash_attention_bwd", "rmsnorm_bwd", "add_rmsnorm_bwd",
+                    "gated_rmsnorm_bwd", "ssd_chunk_bwd")
+
+
+def step_launches(cfg) -> dict:
+    """The kernel launches of one training step (forward and backward) of
+    a model of ``cfg``: a layer's mixer (flash attention, or the SSD chunk
+    and the gated norm), its pre-norms with the residual add fused in (the
+    first layer's is plain), and the final norm."""
+    L = cfg.num_layers
+    if cfg.family == "ssm":
+        fwd = {"ssd_chunk_kernel": L, "gated_rmsnorm": L, "rmsnorm": 1,
+               "add_rmsnorm": L}
+    else:
+        fwd = {"flash_attention": L, "rmsnorm": 1, "add_rmsnorm": 2 * L}
+    bwd = {k.replace("_kernel", "") + "_bwd": v for k, v in fwd.items()}
+    return {**fwd, **bwd}
 
 
 def _float_leaves(params):
@@ -870,6 +998,35 @@ def _float_leaves(params):
         elif t.is_floating_point():
             leaves.append(t)
     return leaves
+
+
+@contextlib.contextmanager
+def planted_fault(module: str, launcher: str, rounding: str):
+    """Inside the block, ``repro_torch.kernels.<module>.<launcher>``'s
+    outputs come back rounded to bf16, or to fp8 e4m3 scaled by each
+    output's max |value|: a lower-precision fault for the bf16 gradient
+    gate's control."""
+    import importlib
+    import torch
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    real = getattr(mod, launcher)
+
+    def bf16(t):
+        return t.to(torch.bfloat16).to(t.dtype)
+
+    def fp8(t):
+        scale = t.abs().amax().float().clamp(min=1e-30) / 448
+        return ((t.float() / scale).to(torch.float8_e4m3fn).float()
+                * scale).to(t.dtype)
+    rnd = {"bf16": bf16, "fp8": fp8}[rounding]
+
+    def faulty(*args, **kwargs):
+        return tuple(rnd(t) for t in real(*args, **kwargs))
+    setattr(mod, launcher, faulty)
+    try:
+        yield
+    finally:
+        setattr(mod, launcher, real)
 
 
 @contextlib.contextmanager
@@ -891,10 +1048,11 @@ def lse_requests():
 
 def backward_check(api, cfg, params, rng):
     """With the params requiring grad, ``api.loss(...).backward()`` on
-    the kernel path runs the backward kernels (flash once a layer, the
-    residual norm twice a layer, the plain norm once) and gives every
+    the kernel path runs the backward kernels (``step_launches``: qwen's
+    flash once a layer and residual norm twice, mamba's SSD, gated norm
+    and residual norm once a layer; the plain norm once) and gives every
     param a finite gradient.  The distance of each param's gradient to
-    the bf16 plain path's is printed; phase 8 holds gradients to a
+    the bf16 plain path's is printed; phases 8 and 10 hold gradients to a
     reference."""
     import torch
     from repro_torch.kernels import ops
@@ -921,9 +1079,8 @@ def backward_check(api, cfg, params, rng):
         for t in leaves:
             t.requires_grad_(False)
             t.grad = None
-    L = cfg.num_layers
-    want = {"flash_attention_bwd": L, "rmsnorm_bwd": 1,
-            "add_rmsnorm_bwd": 2 * L}
+    want = {k: v for k, v in step_launches(cfg).items()
+            if k.endswith("_bwd")}
     got = {k: launches[k] for k in want}
     check(got == want, f"the backward launched {got}, expected {want}")
     check(all(g is not None and bool(torch.isfinite(g).all())
@@ -936,32 +1093,6 @@ def backward_check(api, cfg, params, rng):
           f"gradient finite; largest per-param distance to the bf16 plain "
           f"path {rel:.4e} of that param's max |g|")
     return {"launches": got, "max_rel_to_plain_bf16": rel}
-
-
-def refuse_backward(api, cfg, params, rng):
-    """The SSD and gated-norm kernels have no backward: with the params
-    requiring grad, ``api.loss(...).backward()`` on the kernel path must
-    raise, never run with a cut graph."""
-    import torch
-    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 65)),
-                           device="cuda")
-    leaves = _float_leaves(params)
-    for t in leaves:
-        t.requires_grad_(True)
-    try:
-        api.loss(params, cfg, {"tokens": toks[:, :-1],
-                               "targets": toks[:, 1:]}).backward()
-    except RuntimeError as err:
-        check("no backward" in str(err), f"unexpected error: {err}")
-        print(f"  loss().backward() on the kernel path raises: "
-              f"{str(err)[:90]}...")
-    else:
-        raise RuntimeError("loss().backward() ran through kernels that have "
-                           "no backward")
-    finally:
-        for t in leaves:
-            t.requires_grad_(False)
-            t.grad = None
 
 
 def probe_against_f32(api, cfg, params, probe, outs):
@@ -1176,9 +1307,15 @@ def _rel(a, b):
             ).item()
 
 
-def phase_train():
-    """Phase 8.  Returns (the phase's numbers, launches of the 20-step run
-    by kernel)."""
+def _rel_l2(a, b):
+    """||a - b|| relative to ||b||, in f32."""
+    b = b.float()
+    return ((a.float() - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+
+def phase_train(arch: str, phase: int):
+    """Phase 8 (and 10 (a)-(c) for mamba).  Returns (the phase's numbers,
+    launches of the 20-step run by kernel)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1188,21 +1325,21 @@ def phase_train():
     from repro_torch.sharding import umode
     from repro_torch.train import optim
     from repro_torch.train.data import DataConfig, SyntheticLM
-    print(f"== phase 8: train {TRAIN_ARCH} at full width", flush=True)
+    print(f"== phase {phase}: train {arch} at full width", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     L = cfg.num_layers
-    per_step = {"flash_attention": L, "flash_attention_bwd": L,
-                "rmsnorm": 1, "rmsnorm_bwd": 1, "add_rmsnorm": 2 * L,
-                "add_rmsnorm_bwd": 2 * L}
-    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
-                                  seq_len=TRAIN_GRAD_SEQ,
-                                  global_batch=TRAIN_GRAD_BATCH, seed=1))
-    batch = {k: torch.as_tensor(v, device="cuda")
-             for k, v in data.global_batch(0).items()}
-    out = {"arch": TRAIN_ARCH, "grad_batch": [TRAIN_GRAD_BATCH,
-                                              TRAIN_GRAD_SEQ]}
+    per_step = step_launches(cfg)
+    def grad_batch(seed):
+        data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=TRAIN_GRAD_SEQ,
+                                      global_batch=TRAIN_GRAD_BATCH,
+                                      seed=seed))
+        return {k: torch.as_tensor(v, device="cuda")
+                for k, v in data.global_batch(0).items()}
+    batch = grad_batch(TRAIN_GRAD_SEEDS[0])
+    out = {"arch": arch, "grad_batch": [TRAIN_GRAD_BATCH, TRAIN_GRAD_SEQ]}
 
     # (a) f32 gradients, kernel path vs plain path, full depth
     c32 = cfg.replace(dtype="float32")
@@ -1230,35 +1367,81 @@ def phase_train():
                   "max_rel": rel32[worst], "worst": names[worst],
                   "rel_by_param": dict(zip(names, rel32))}
 
-    # (b) bf16 gradients held to the f32 plain ones
-    pbf = optim.tree_map(lambda t: t.to(torch.bfloat16), p32)
-    del p32
-    gc.collect()
-    loss_bk, g_bk = _grads(api, optim, pbf, cfg, batch)
-    dist_k = [_rel(a, b) for a, b in zip(g_bk, g_p)]
-    del g_bk
-    loss_bp, g_bp = _grads(api, optim, pbf, cfg.replace(use_kernels=False),
-                           batch)
-    dist_p = [_rel(a, b) for a, b in zip(g_bp, g_p)]
-    del g_bp, g_p, pbf
+    # (b) bf16 gradients held to the f32 plain ones on each seed's batch,
+    # each param in the dtype the bf16 config gives it (mamba keeps its
+    # SSM leaves in f32); then the planted faults, which must fail
+    dtypes = [t.dtype for t in optim.leaves(api.init(0, cfg, device="meta"))]
+    pbf = optim.unflatten(p32, [t.to(d) for t, d in
+                                zip(optim.leaves(p32), dtypes)])
+    margins = TRAIN_BF16_MARGINS[cfg.family]
+    controls = TRAIN_BF16_CONTROLS.get(cfg.family, ())
+    bf16 = {"margins": {"max_abs": margins[0], "l2": margins[1]},
+            "seeds": {}, "controls": {c[0]: {} for c in controls}}
+
+    def distances(params, c, want):
+        """(loss, per param (max-abs, L2) distance to ``want``)."""
+        loss, g = _grads(api, optim, params, c, batch)
+        return loss, [(_rel(a, b), _rel_l2(a, b)) for a, b in zip(g, want)]
+
+    def excess(dist, plain):
+        """per metric: (largest excess over the plain path, its param)."""
+        res = []
+        for m in range(2):
+            e = [a[m] - b[m] for a, b in zip(dist, plain)]
+            i = int(np.argmax(e))
+            res.append((e[i], names[i]))
+        return res
+    for seed in TRAIN_GRAD_SEEDS:
+        if seed != TRAIN_GRAD_SEEDS[0]:     # the first's are (a)'s
+            batch = grad_batch(seed)
+            _, g_p = _grads(api, optim, p32,
+                            c32.replace(use_kernels=False), batch)
+        loss_bk, dist_k = distances(pbf, cfg, g_p)
+        loss_bp, dist_p = distances(pbf, cfg.replace(use_kernels=False),
+                                    g_p)
+        (ex_abs, w_abs), (ex_l2, w_l2) = excess(dist_k, dist_p)
+        print(f"  (b) bf16 gradients against the f32 plain path, batch "
+              f"seed {seed}: loss kernels {loss_bk:.6f} plain "
+              f"{loss_bp:.6f}; largest max-abs distance kernel path "
+              f"{max(d[0] for d in dist_k):.3e}, plain path "
+              f"{max(d[0] for d in dist_p):.3e}, largest excess "
+              f"{ex_abs:.3e} ({w_abs}; margin {margins[0]}); largest L2 "
+              f"distance kernel path {max(d[1] for d in dist_k):.3e}, "
+              f"plain path {max(d[1] for d in dist_p):.3e}, largest excess "
+              f"{ex_l2:.3e} ({w_l2}; margin {margins[1]})")
+        check(all(np.isfinite(d).all() for d in dist_k)
+              and ex_abs <= margins[0] and ex_l2 <= margins[1],
+              f"bf16 kernel-path gradients on batch seed {seed} are farther "
+              f"from the f32 plain ones than the bf16 plain path's by "
+              f"{ex_abs:.3e} ({w_abs}) in max-abs, {ex_l2:.3e} ({w_l2}) in "
+              f"L2")
+        bf16["seeds"][seed] = {
+            "loss_kernels": loss_bk, "loss_plain": loss_bp,
+            "max_excess": ex_abs, "max_excess_worst": w_abs,
+            "max_excess_l2": ex_l2, "max_excess_l2_worst": w_l2,
+            "max_dist_kernels": max(d[0] for d in dist_k),
+            "max_dist_plain": max(d[0] for d in dist_p),
+            "max_l2_kernels": max(d[1] for d in dist_k),
+            "max_l2_plain": max(d[1] for d in dist_p),
+            "dist_by_param": {n: [*k, *p] for n, k, p in
+                              zip(names, dist_k, dist_p)}}
+        for label, module, launcher, rounding in controls:
+            with planted_fault(module, launcher, rounding):
+                _, dist_c = distances(pbf, cfg, g_p)
+            (c_abs, cw_abs), (c_l2, cw_l2) = excess(dist_c, dist_p)
+            caught = c_abs > margins[0] or c_l2 > margins[1]
+            print(f"      control, {label}: excess max-abs {c_abs:.3e} "
+                  f"({cw_abs}), L2 {c_l2:.3e} ({cw_l2}); caught: {caught}")
+            check(caught, f"the bf16 gate let a planted fault through: "
+                          f"{label}")
+            bf16["controls"][label][seed] = {
+                "max_excess": c_abs, "max_excess_worst": cw_abs,
+                "max_excess_l2": c_l2, "max_excess_l2_worst": cw_l2}
+        del g_p
+    out["bf16"] = bf16
+    del p32, pbf
     gc.collect()
     torch.cuda.empty_cache()
-    excess = [a - b for a, b in zip(dist_k, dist_p)]
-    worst = int(np.argmax(excess))
-    print(f"  (b) bf16 gradients against the f32 plain path: loss kernels "
-          f"{loss_bk:.6f} plain {loss_bp:.6f}; largest kernel-path distance "
-          f"{max(dist_k):.3e}, plain-path {max(dist_p):.3e}; largest excess "
-          f"{excess[worst]:.3e} ({names[worst]}: {dist_k[worst]:.3e} vs "
-          f"{dist_p[worst]:.3e}; margin {TRAIN_BF16_MARGIN})")
-    check(all(np.isfinite(dist_k)) and excess[worst] <= TRAIN_BF16_MARGIN,
-          f"bf16 kernel-path gradient of {names[worst]} is farther from the "
-          f"f32 plain one than the bf16 plain path's by {excess[worst]:.3e}")
-    out["bf16"] = {"loss_kernels": loss_bk, "loss_plain": loss_bp,
-                   "max_dist_kernels": max(dist_k),
-                   "max_dist_plain": max(dist_p),
-                   "max_excess": excess[worst], "worst": names[worst],
-                   "dist_by_param": {n: [a, b] for n, a, b in
-                                     zip(names, dist_k, dist_p)}}
 
     # (c) AdamW steps through the launcher's code
     opt_cfg = optim.OptConfig(lr=TRAIN_LR, total_steps=TRAIN_STEPS,
@@ -1414,34 +1597,28 @@ def checkpoint_spy(log):
             setattr(M, k, f)
 
 
-def phase_loop(train_step_ms: float):
-    """Phase 9.  Returns ({"loop", "analysis", "quickstart"}, launches of
-    the loop's run by kernel)."""
-    import importlib.util
+def loop_check(cfg, steps: int, ckpt_every: int, fault_step: int,
+               remesh_step, train_step_ms: float):
+    """``repro_torch.train.loop.run`` of ``cfg`` at the training shape for
+    ``steps`` steps, a checkpoint every ``ckpt_every`` (async, the last
+    kept), a failure injected before ``fault_step`` (in [ckpt_every + 2,
+    2 ckpt_every): the restore is from step ``ckpt_every`` and two
+    replayed steps ran before the fault) and, unless None, a re-mesh onto
+    a fresh 1x1 mesh before ``remesh_step``.  Checks one restart, the
+    restored state equal to the saved one (per-leaf checksums on the
+    card), both replayed losses equal to the first ones bit for bit, and
+    the kernels launched as the steps run say.  Returns (its numbers, the
+    launches by kernel)."""
     import shutil
     import tempfile
     import numpy as np
     import torch
-    from repro_torch.core import (ChipSpec, SystemSpec, analyze, build_terms,
-                                  cost_analysis, matmul_flops, simulate)
-    from repro_torch.core.hlo import kernel_ops
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import api, get_config
     from repro_torch.sharding import umode
     from repro_torch.train import loop, optim
     from repro_torch.train.data import DataConfig
-    print(f"== phase 9: fault-tolerant loop and cost analysis, {TRAIN_ARCH} "
-          f"at full width", flush=True)
-    gc.collect()
-    torch.cuda.empty_cache()
-    cfg = get_config(TRAIN_ARCH)
-    L = cfg.num_layers
-    per_step = {"flash_attention": L, "flash_attention_bwd": L,
-                "rmsnorm": 1, "rmsnorm_bwd": 1, "add_rmsnorm": 2 * L,
-                "add_rmsnorm_bwd": 2 * L}
-
-    # (a) the loop
+    check(ckpt_every + 2 <= fault_step < 2 * ckpt_every, "fault step")
     tmp = tempfile.gettempdir()
     free0 = shutil.disk_usage(tmp).free
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -1458,6 +1635,8 @@ def phase_loop(train_step_ms: float):
             return step(state, batch)
         return timed
     loop.umode.make_train_step = make_step
+    remesh = {} if remesh_step is None else {
+        remesh_step: make_mesh((1, 1), ("data", "model"))}
     ops.reset_launches()
     try:
         with checkpoint_spy(log):
@@ -1465,16 +1644,15 @@ def phase_loop(train_step_ms: float):
                 cfg, make_mesh((1, 1), ("data", "model")),
                 DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                            global_batch=TRAIN_BATCH),
-                opt_cfg=optim.OptConfig(lr=TRAIN_LR, total_steps=LOOP_STEPS,
+                opt_cfg=optim.OptConfig(lr=TRAIN_LR, total_steps=steps,
                                         warmup_steps=1),
                 loop_cfg=loop.LoopConfig(
-                    total_steps=LOOP_STEPS, ckpt_every=LOOP_CKPT_EVERY,
+                    total_steps=steps, ckpt_every=ckpt_every,
                     keep=LOOP_KEEP, ckpt_dir=ckpt_dir, async_ckpt=True,
                     log_every=1),
-                fault_schedule={LOOP_FAULT_STEP:
+                fault_schedule={fault_step:
                                 RuntimeError("injected node failure")},
-                remesh_schedule={LOOP_REMESH_STEP:
-                                 make_mesh((1, 1), ("data", "model"))})
+                remesh_schedule=remesh)
         torch.cuda.synchronize()
         launches = ops.launch_counts()
     finally:
@@ -1483,66 +1661,85 @@ def phase_loop(train_step_ms: float):
     print(f"  {rep.steps_run} steps run, restarts {rep.restarts}, re-mesh "
           f"events {rep.remesh_events}, final step {rep.final_step}, "
           f"stragglers {rep.straggler_steps}; losses {rep.losses}")
-    check(rep.restarts == 1 and rep.remesh_events == 1
-          and rep.final_step == LOOP_STEPS,
+    check(rep.restarts == 1 and rep.remesh_events == len(remesh)
+          and rep.final_step == steps,
           f"loop: restarts {rep.restarts}, re-mesh {rep.remesh_events}, "
           f"final step {rep.final_step}")
     check(all(np.isfinite(rep.losses)), f"non-finite loss: {rep.losses}")
-    # steps 0..4, then the restore from step 3 and steps 3..7
-    first = LOOP_FAULT_STEP
-    check(len(rep.losses) == first + LOOP_STEPS - LOOP_CKPT_EVERY,
+    # steps 0..fault-1, then the restore from ckpt_every and the rest
+    check(len(rep.losses) == fault_step + steps - ckpt_every,
           f"{len(rep.losses)} losses")
-    want = {k: rep.steps_run * v for k, v in per_step.items()}
+    want = {k: rep.steps_run * v for k, v in step_launches(cfg).items()}
     got = {k: v for k, v in launches.items() if v}
     check(got == want, f"the loop launched {got}, expected {want}")
     saved, restored = log["saved"], log["restored"]
-    check(list(restored) == [LOOP_CKPT_EVERY],
-          f"restored steps {list(restored)}, expected [{LOOP_CKPT_EVERY}]")
-    same_state = restored[LOOP_CKPT_EVERY] == saved[LOOP_CKPT_EVERY]
-    check(same_state, "the state restored at step 3 is not the one saved "
-                      "(per-leaf checksums differ)")
-    replay = rep.losses[first] == rep.losses[LOOP_CKPT_EVERY]
-    check(replay, f"step 3 replayed gives {rep.losses[first]!r}, before the "
-                  f"fault {rep.losses[LOOP_CKPT_EVERY]!r}")
-    replay4 = rep.losses[first + 1] == rep.losses[LOOP_CKPT_EVERY + 1]
+    check(list(restored) == [ckpt_every],
+          f"restored steps {list(restored)}, expected [{ckpt_every}]")
+    same_state = restored[ckpt_every] == saved[ckpt_every]
+    check(same_state, f"the state restored at step {ckpt_every} is not the "
+                      f"one saved (per-leaf checksums differ)")
+    replay = rep.losses[fault_step] == rep.losses[ckpt_every]
+    check(replay, f"step {ckpt_every} replayed gives "
+                  f"{rep.losses[fault_step]!r}, before the fault "
+                  f"{rep.losses[ckpt_every]!r}")
+    replay_next = rep.losses[fault_step + 1] == rep.losses[ckpt_every + 1]
+    check(replay_next, f"step {ckpt_every + 1} replayed gives "
+                       f"{rep.losses[fault_step + 1]!r}, before the fault "
+                       f"{rep.losses[ckpt_every + 1]!r}")
     busy = [(w["at"], w["end"]) for w in log["writes"]] + \
         [(v["at"], v["at"] + v["wait_s"] + v["snapshot_s"])
          for v in log["saves"]]
     quiet = [dt * 1e3 for i, (t0, dt) in enumerate(zip(starts, rep.step_s))
              if i > 0 and not any(a < t0 + dt and t0 < b for a, b in busy)]
-    loop_out = {
-        "steps_run": rep.steps_run, "final_step": rep.final_step,
-        "restarts": rep.restarts, "remesh_events": rep.remesh_events,
+    out = {
+        "arch": cfg.name, "steps_run": rep.steps_run,
+        "final_step": rep.final_step, "restarts": rep.restarts,
+        "remesh_events": rep.remesh_events,
         "straggler_steps": rep.straggler_steps, "losses": rep.losses,
         "step_ms": [t * 1e3 for t in rep.step_s],
         "step_ms_median_all": statistics.median(rep.step_s[1:]) * 1e3,
         "step_ms_median_away_from_checkpoints":
             statistics.median(quiet) if quiet else None,
         "steps_away_from_checkpoints": len(quiet),
-        "phase8_step_ms_median": train_step_ms,
+        "train_phase_step_ms_median": train_step_ms,
         "restored_state_bit_identical": same_state,
-        "replayed_step3_loss_bit_identical": replay,
-        "replayed_step4_loss_bit_identical": replay4,
+        "replayed_loss_bit_identical": replay,
+        "replayed_next_loss_bit_identical": replay_next,
         "free_disk_bytes_before": free0, "tmpdir": tmp,
         "bytes_written": sum(w["bytes"] for w in log["writes"]),
         "saves": log["saves"], "writes": log["writes"],
         "restores": log["restores"], "launches": got}
-    print(f"  state restored at step 3 bit-identical to the saved one: "
-          f"{same_state}; replayed step 3 loss bit-identical: {replay}; "
-          f"replayed step 4 loss bit-identical (not gated): {replay4}")
+    print(f"  state restored at step {ckpt_every} bit-identical to the saved "
+          f"one: {same_state}; replayed steps {ckpt_every} and "
+          f"{ckpt_every + 1} losses bit-identical: {replay}, {replay_next}")
     print(f"  free disk under {tmp} before: {free0 / 1e9:.1f} GB; written "
-          f"{loop_out['bytes_written'] / 1e9:.2f} GB in "
+          f"{out['bytes_written'] / 1e9:.2f} GB in "
           f"{len(log['writes'])} checkpoints; snapshot s "
           f"{[round(v['snapshot_s'], 3) for v in log['saves']]}, wait s "
           f"{[round(v['wait_s'], 3) for v in log['saves']]}, async write s "
           f"{[round(w['write_s'], 3) for w in log['writes']]}, restore s "
           f"{[round(r['restore_s'], 3) for r in log['restores']]}")
-    print(f"  step ms: median {loop_out['step_ms_median_all']:.1f} (steps "
-          f"after the first), {loop_out['step_ms_median_away_from_checkpoints']}"
+    print(f"  step ms: median {out['step_ms_median_all']:.1f} (steps "
+          f"after the first), {out['step_ms_median_away_from_checkpoints']}"
           f" over the {len(quiet)} steps that overlap no save or write; "
-          f"phase 8's median {train_step_ms:.1f}")
+          f"the train phase's median {train_step_ms:.1f}")
+    return out, got
 
-    # (b) the cost front end: one whole train step traced on meta
+
+def trace_check(cfg, train_step_ms: float, want_mm=None):
+    """One whole train step of ``cfg`` at the training shape traced on
+    the meta device (``repro_torch.core.analyze``): one trace op per
+    kernel call of a step (``step_launches``) and, where ``want_mm`` is
+    given, matrix-product FLOPs equal to it; the step SIMULATED on one
+    chip with the reference's v5e ChipSpec and with the H100's datasheet,
+    beside ``train_step_ms``, the measured step."""
+    import torch
+    from repro_torch.core import (ChipSpec, SystemSpec, analyze, build_terms,
+                                  cost_analysis, matmul_flops, simulate)
+    from repro_torch.core.hlo import kernel_ops
+    from repro_torch.models import api
+    from repro_torch.sharding import umode
+    from repro_torch.train import optim
     t0 = time.perf_counter()
     state = optim.init_state(api.init(0, cfg, device="meta"))
     batch = {k: torch.zeros((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int64,
@@ -1551,23 +1748,18 @@ def phase_loop(train_step_ms: float):
                    batch)
     trace_s = time.perf_counter() - t0
     traced_kernels = kernel_ops(cost.trace)
+    per_step = step_launches(cfg)
     check(traced_kernels == per_step, f"traced kernel ops {traced_kernels}, "
                                       f"the launch counters' step {per_step}")
-    d = cfg.d_model
-    mm_params = L * (d * (2 * cfg.q_dim + 2 * cfg.kv_dim) + 3 * d * cfg.d_ff) \
-        + d * cfg.padded_vocab
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    # forward, dX and dW; then the chunked loss's checkpointed chunks make
-    # their logits again in the backward: one more unembedding forward
-    want_mm = 3 * 2 * mm_params * tokens + 2 * tokens * d * cfg.padded_vocab
-    check(matmul_flops(cost) == want_mm, f"traced matmul FLOPs "
-          f"{matmul_flops(cost)}, from the config {want_mm}")
+    if want_mm is not None:
+        check(matmul_flops(cost) == want_mm, f"traced matmul FLOPs "
+              f"{matmul_flops(cost)}, from the config {want_mm}")
     sims = {}
     for label, chip in (("v5e (the reference's default ChipSpec)",
                          ChipSpec()), ("h100-sxm datasheet", ChipSpec(
                              **H100_CHIP))):
         spec = SystemSpec(chip=chip, pod_shape=(1, 1))
-        terms = build_terms(f"{TRAIN_ARCH}/train-step", "(1,1)", 1,
+        terms = build_terms(f"{cfg.name}/train-step", "(1,1)", 1,
                             cost_analysis(cost), cost, spec)
         sim = simulate(cost=cost, spec=spec, device_limit=1)
         sims[chip.name] = {"label": label, "sim_step_ms": sim.time_s * 1e3,
@@ -1579,19 +1771,47 @@ def phase_loop(train_step_ms: float):
               f"{sim.time_s * 1e3:.3f} ms (util {sim.compute_util:.3f}; "
               f"compute {terms.t_compute * 1e3:.3f} ms, memory "
               f"{terms.t_memory * 1e3:.3f} ms, {terms.dominant}-bound)")
+    check(all(v["sim_step_ms"] > 0 for v in sims.values()),
+          f"simulated steps {sims}")
     ratio = sims["h100-sxm"]["sim_step_ms"] / train_step_ms
-    analysis = {"trace_s": trace_s, "trace_ops": len(cost.trace),
-                "kernel_ops": traced_kernels, "flops": cost.flops,
-                "matmul_flops": matmul_flops(cost), "hbm_bytes": cost.hbm_bytes,
-                "simulated": sims, "measured_step_ms_phase8": train_step_ms,
-                "simulated_over_measured_h100": ratio}
     print(f"  traced one train step on meta in {trace_s:.2f} s: "
-          f"{len(cost.trace)} ops, {cost.flops:.4g} FLOPs ({want_mm:.4g} in "
-          f"matrix products, as the config counts with the chunked loss's "
-          f"recomputed unembedding), {cost.hbm_bytes:.4g} HBM "
-          f"bytes, kernel ops {traced_kernels}")
-    print(f"  simulated h100-sxm step / phase 8's measured median step "
+          f"{len(cost.trace)} ops, {cost.flops:.4g} FLOPs "
+          f"({matmul_flops(cost):.4g} in matrix products), "
+          f"{cost.hbm_bytes:.4g} HBM bytes, kernel ops {traced_kernels}")
+    print(f"  simulated h100-sxm step / the measured median step "
           f"({train_step_ms:.1f} ms): {ratio:.3f}")
+    return {"trace_s": trace_s, "trace_ops": len(cost.trace),
+            "kernel_ops": traced_kernels, "flops": cost.flops,
+            "matmul_flops": matmul_flops(cost), "hbm_bytes": cost.hbm_bytes,
+            "simulated": sims, "measured_step_ms": train_step_ms,
+            "simulated_over_measured_h100": ratio}
+
+
+def phase_loop(train_step_ms: float):
+    """Phase 9.  Returns ({"loop", "analysis", "quickstart"}, launches of
+    the loop's run by kernel)."""
+    import importlib.util
+    import numpy as np
+    import torch
+    from repro_torch.models import get_config
+    print(f"== phase 9: fault-tolerant loop and cost analysis, {TRAIN_ARCH} "
+          f"at full width", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    loop_out, got = loop_check(cfg, LOOP_STEPS, LOOP_CKPT_EVERY,
+                               LOOP_FAULT_STEP, LOOP_REMESH_STEP,
+                               train_step_ms)
+
+    # (b) the cost front end.  Matrix products: forward, dX and dW; then
+    # the chunked loss's checkpointed chunks make their logits again in
+    # the backward: one more unembedding forward
+    d = cfg.d_model
+    mm_params = cfg.num_layers * (d * (2 * cfg.q_dim + 2 * cfg.kv_dim)
+                                  + 3 * d * cfg.d_ff) + d * cfg.padded_vocab
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    want_mm = 3 * 2 * mm_params * tokens + 2 * tokens * d * cfg.padded_vocab
+    analysis = trace_check(cfg, train_step_ms, want_mm)
 
     # (c) the quickstart on the card
     spec = importlib.util.spec_from_file_location(
@@ -1610,6 +1830,29 @@ def phase_loop(train_step_ms: float):
     torch.cuda.empty_cache()
     return {"loop": loop_out, "analysis": analysis,
             "quickstart": quickstart}, got
+
+
+def phase_mamba():
+    """Phase 10: phases 8 and 9 for mamba2-1.3b.  Returns ({"train",
+    "loop", "analysis"}, launches of the 20-step run by kernel, launches
+    of the loop's run by kernel)."""
+    import torch
+    from repro_torch.models import get_config
+    train, train_launches = phase_train(MAMBA_ARCH, 10)
+    step_ms = train["steps"]["step_ms_median"]
+    print(f"== phase 10 (d), (e): fault-tolerant loop and cost analysis, "
+          f"{MAMBA_ARCH} at full width", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(MAMBA_ARCH)
+    loop_out, loop_launches = loop_check(
+        cfg, MAMBA_LOOP_STEPS, LOOP_CKPT_EVERY, LOOP_FAULT_STEP, None,
+        step_ms)
+    analysis = trace_check(cfg, step_ms)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ({"train": train, "loop": loop_out, "analysis": analysis},
+            train_launches, loop_launches)
 
 
 def _paths(tree, prefix=()):
@@ -1640,8 +1883,9 @@ def main() -> int:
         serve[arch] = phase_serve(arch, phase)
         phase_f32(arch, phase + 1)
     mgmark_rows, mgmark_launches, mgmark_sim = phase_mgmark()
-    train, train_launches = phase_train()
+    train, train_launches = phase_train(TRAIN_ARCH, 8)
     loop_phase, loop_launches = phase_loop(train["steps"]["step_ms_median"])
+    mamba, mamba_train_launches, mamba_loop_launches = phase_mamba()
     # (shape, dtype) of each kernel's row in the kernels line
     H, W, K, _ = STENCIL_CASES[0]
     L, size, dist, _, _ = BITONIC_CASES[0]
@@ -1661,7 +1905,10 @@ def main() -> int:
                  "rmsnorm_bwd": ("rows={},d={}".format(*RMS_BWD_SHAPE),
                                  "bfloat16"),
                  "add_rmsnorm_bwd": ("rows={},d={}".format(*RMS_BWD_SHAPE),
-                                     "bfloat16")}
+                                     "bfloat16"),
+                 "gated_rmsnorm_bwd": ("rows={},d={}".format(
+                     *GATED_BWD_SHAPE), "bfloat16"),
+                 "ssd_chunk_bwd": (SSD_BWD_CASES[0][0], "float32")}
     source = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                   "src/repro/kernels/flash_attention.py:76"),
               "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -1686,7 +1933,11 @@ def main() -> int:
               "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                               "src/repro/kernels/rmsnorm.py:27"),
               "add_rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
-                                  "src/repro/kernels/rmsnorm.py:27")}
+                                  "src/repro/kernels/rmsnorm.py:27"),
+              "gated_rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                                    "src/repro/kernels/rmsnorm.py:27"),
+              "ssd_chunk_bwd": ("src/repro_torch/kernels/csrc/ssd_bwd.cu",
+                                "src/repro/kernels/ssd.py:50")}
     kernels = []
     for kname, rows in cases.items():
         main_row = next(r for r in rows
@@ -1696,6 +1947,8 @@ def main() -> int:
         by_path["mgmark"] = mgmark_launches[kname]
         by_path["train"] = train_launches[kname]
         by_path["loop"] = loop_launches.get(kname, 0)
+        by_path["mamba_train"] = mamba_train_launches[kname]
+        by_path["mamba_loop"] = mamba_loop_launches.get(kname, 0)
         kernels.append({
             "name": kname, "route": "cuda", "source": source[kname][0],
             "replaces": source[kname][1], "launches": sum(by_path.values()),
@@ -1706,6 +1959,7 @@ def main() -> int:
             **({"direction": "backward"} if kname.endswith("_bwd") else {}),
             **{k: main_row[k] for k in ("library", "library_calls",
                                         "bound_ms_f32", "lse_max_abs_err",
+                                        "max_err_over_max_value",
                                         "sort_ms", "torch_sort_ms",
                                         "sort_launches")
                if k in main_row},
@@ -1719,7 +1973,7 @@ def main() -> int:
     (out / "chip_smoke.json").write_text(json.dumps(
         {"device": name, "kernels": kernels, "serve": serve,
          "mgmark": mgmark_rows, "mgmark_simulated": mgmark_sim,
-         "train": train, **loop_phase,
+         "train": train, **loop_phase, "mamba": mamba,
          "seconds": time.perf_counter() - t0},
         indent=1))
     smi = subprocess.run(

@@ -79,6 +79,28 @@ def ssd_chunk(x, Bm) -> Cost:
     return ops, nbytes
 
 
+def gated_rmsnorm_bwd(x, w) -> Cost:
+    """The gate again (silu's 4 and the product), the norm's backward 12,
+    dx's product and dz's 6 (1 - sig, times z, plus 1, times sig, x and
+    dg): 23 an element; x, z, dy and w read, dx, dz and dw written."""
+    n = x.numel()
+    return 23 * n, (5 * n + 2 * w.numel()) * x.element_size()
+
+
+def ssd_chunk_bwd(x, Bm) -> Cost:
+    """x (R,H,Q,P), Bm (R,H,Q,N), f32: over the causal pairs C B^T and
+    dy x^T again, att^T dy, dG B and dG^T C; (B w) dS and x dS^T; x, dt,
+    cs, dy and dS read once, B and C once a chunk, dx, ddt, dcs and the
+    per-head dB and dC written."""
+    R, H, Q, P = x.shape
+    N = Bm.shape[-1]
+    pairs = Q * (Q + 1) / 2
+    ops = R * H * (2 * pairs * (3 * N + 2 * P) + 4 * Q * N * P)
+    nbytes = 4 * (3 * R * H * Q * P + R * H * N * P + 4 * R * H * Q
+                  + 2 * R * Q * N + 2 * R * H * Q * N)
+    return ops, nbytes
+
+
 def stencil2d(img, kern) -> Cost:
     """2 K^2 operations an output; img read and written once, the
     weights read."""

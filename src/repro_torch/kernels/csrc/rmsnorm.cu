@@ -63,6 +63,15 @@
 // (rmsnorm_bwd_kernel), which walks rows blockIdx.x, blockIdx.x +
 // gridDim.x, ... and writes its partial rows the same way.  Every sum is
 // taken in a fixed order: deterministic, no atomics.
+//
+// The gated norm's backward (gated_rmsnorm_bwd, ref.py::
+// gated_rmsnorm_bwd_ref) is the same two launches in a third mode: each
+// element recomputes s = silu(z) and the norm's input g = x s in f32,
+// rounded as the forward's prologue rounds them, takes (dg, dw) as above
+// at g, and writes dx = dg s and dz = dg x sig(z) (1 + z (1 - sig(z))),
+// each rounded once to the dtype.  At Mamba2-1.3b's d_inner (4096) a row
+// is too wide for a warp's registers (16 packs a lane in bf16), so its
+// rows take the block-per-row kernel, two packs a thread in bf16.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -201,15 +210,64 @@ __device__ __forceinline__ float2 block_sum2(float a, float b) {
   return t;
 }
 
-// MAXP > 0: each thread holds at most MAXP packs of a row in registers and
-// its dw partial there too; MAXP == 0: any width, the row read twice and
-// the dw partial kept in this block's row of `partial`.
-template <typename T, int VEC, int MAXP, bool RESID>
+// Mamba2's gate in front of the norm, as the forward's prologue computes
+// it: s = silu(z) and the norm's input g = x * s, each rounded to T
+// (returned: g); with sig = sigmoid(z), q = x sig (1 + z (1 - sig)) is
+// dz's factor, dz = dg q.
+template <typename T>
+__device__ __forceinline__ float gate_in(float x, float z, float& s,
+                                         float& q) {
+  const float e = expf(-z);
+  s = to_f32(from_f32<T>(z / (1.f + e)));
+  const float sig = 1.f / (1.f + e);
+  q = x * sig * (1.f + z * (1.f - sig));
+  return to_f32(from_f32<T>(x * s));
+}
+
+// One element's share of the backward, from x, dy, w and (by MODE) dh or
+// z, given the row's r and c = r^3 mean(dy w g): writes dx (and dz) into
+// the packs' element j and adds to dw.
+template <typename T, int MODE>
+__device__ __forceinline__ void bwd_element(float xf, float df, float wf,
+                                            float of, float r, float c,
+                                            T& dx, T& dz, float& dw) {
+  if constexpr (MODE == kGate) {
+    float s, q;
+    const float g = gate_in<T>(xf, of, s, q);
+    const float dg = r * df * wf - g * c;
+    dx = from_f32<T>(dg * s);
+    dz = from_f32<T>(dg * q);
+    dw += df * g * r;
+  } else {
+    float g = r * df * wf - xf * c;
+    if constexpr (MODE == kResidual) g += of;
+    dx = from_f32<T>(g);
+    dw += df * xf * r;
+  }
+}
+
+// The norm's input of one element: x, or with the gate g = x * silu(z).
+template <typename T, int MODE>
+__device__ __forceinline__ float norm_in(float xf, float of) {
+  if constexpr (MODE == kGate) {
+    float s, q;
+    return gate_in<T>(xf, of, s, q);
+  } else {
+    return xf;
+  }
+}
+
+// MODE: kPlain; kResidual (o = dh, added to dx); kGate (o = z, dz
+// written).  MAXP > 0: each thread holds at most MAXP packs of a row in
+// registers and its dw partial there too; MAXP == 0: any width, the row
+// read twice and the dw partial kept in this block's row of `partial`.
+template <typename T, int VEC, int MAXP, int MODE>
 __global__ void __launch_bounds__(kBwdThreads)
     rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                       const T* __restrict__ dy, const T* __restrict__ dh,
-                       T* __restrict__ dx, float* __restrict__ partial,
-                       int rows, int d, float eps) {
+                       const T* __restrict__ dy, const T* __restrict__ o,
+                       T* __restrict__ dx, T* __restrict__ dz,
+                       float* __restrict__ partial, int rows, int d,
+                       float eps) {
   using P = Pack<T, VEC>;
   const int nvec = d / VEC;
   const P* wr = reinterpret_cast<const P*>(w);
@@ -226,19 +284,25 @@ __global__ void __launch_bounds__(kBwdThreads)
       const size_t off = (size_t)row * d;
       const P* xr = reinterpret_cast<const P*>(x + off);
       const P* dyr = reinterpret_cast<const P*>(dy + off);
-      float xv[MAXP][VEC], dv[MAXP][VEC];
+      const P* orow =
+          reinterpret_cast<const P*>(MODE == kPlain ? x : o + off);
+      float xv[MAXP][VEC], dv[MAXP][VEC], ov[MAXP][VEC];
       float sxx = 0.f, sgx = 0.f;
 #pragma unroll
       for (int k = 0; k < MAXP; ++k) {
         const int i = threadIdx.x + k * blockDim.x;
         if (i < nvec) {
           const P xp = xr[i], dp = dyr[i], wp = wr[i];
+          P op;
+          if constexpr (MODE != kPlain) op = orow[i];
 #pragma unroll
           for (int j = 0; j < VEC; ++j) {
             xv[k][j] = to_f32(xp.v[j]);
             dv[k][j] = to_f32(dp.v[j]);
-            sxx += xv[k][j] * xv[k][j];
-            sgx += dv[k][j] * to_f32(wp.v[j]) * xv[k][j];
+            ov[k][j] = MODE != kPlain ? to_f32(op.v[j]) : 0.f;
+            const float g = norm_in<T, MODE>(xv[k][j], ov[k][j]);
+            sxx += g * g;
+            sgx += dv[k][j] * to_f32(wp.v[j]) * g;
           }
         }
       }
@@ -250,16 +314,13 @@ __global__ void __launch_bounds__(kBwdThreads)
         const int i = threadIdx.x + k * blockDim.x;
         if (i < nvec) {
           const P wp = wr[i];
-          P hp, op;
-          if constexpr (RESID) hp = reinterpret_cast<const P*>(dh + off)[i];
+          P xo, zo;
 #pragma unroll
-          for (int j = 0; j < VEC; ++j) {
-            float g = r * dv[k][j] * to_f32(wp.v[j]) - xv[k][j] * c;
-            if constexpr (RESID) g += to_f32(hp.v[j]);
-            op.v[j] = from_f32<T>(g);
-            dw[k][j] += dv[k][j] * xv[k][j] * r;
-          }
-          reinterpret_cast<P*>(dx + off)[i] = op;
+          for (int j = 0; j < VEC; ++j)
+            bwd_element<T, MODE>(xv[k][j], dv[k][j], to_f32(wp.v[j]),
+                                 ov[k][j], r, c, xo.v[j], zo.v[j], dw[k][j]);
+          reinterpret_cast<P*>(dx + off)[i] = xo;
+          if constexpr (MODE == kGate) reinterpret_cast<P*>(dz + off)[i] = zo;
         }
       }
     }
@@ -280,14 +341,19 @@ __global__ void __launch_bounds__(kBwdThreads)
       const size_t off = (size_t)row * d;
       const P* xr = reinterpret_cast<const P*>(x + off);
       const P* dyr = reinterpret_cast<const P*>(dy + off);
+      const P* orow =
+          reinterpret_cast<const P*>(MODE == kPlain ? x : o + off);
       float sxx = 0.f, sgx = 0.f;
       for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
         const P xp = xr[i], dp = dyr[i], wp = wr[i];
+        P op;
+        if constexpr (MODE == kGate) op = orow[i];
 #pragma unroll
         for (int j = 0; j < VEC; ++j) {
-          const float xf = to_f32(xp.v[j]);
-          sxx += xf * xf;
-          sgx += to_f32(dp.v[j]) * to_f32(wp.v[j]) * xf;
+          const float g = norm_in<T, MODE>(
+              to_f32(xp.v[j]), MODE == kGate ? to_f32(op.v[j]) : 0.f);
+          sxx += g * g;
+          sgx += to_f32(dp.v[j]) * to_f32(wp.v[j]) * g;
         }
       }
       const float2 t = block_sum2(sxx, sgx);
@@ -295,17 +361,16 @@ __global__ void __launch_bounds__(kBwdThreads)
       const float c = r * r * r * t.y * inv_d;
       for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
         const P xp = xr[i], dp = dyr[i], wp = wr[i];
-        P hp, op;
-        if constexpr (RESID) hp = reinterpret_cast<const P*>(dh + off)[i];
+        P op, xo, zo;
+        if constexpr (MODE != kPlain) op = orow[i];
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          const float xf = to_f32(xp.v[j]), df = to_f32(dp.v[j]);
-          float g = r * df * to_f32(wp.v[j]) - xf * c;
-          if constexpr (RESID) g += to_f32(hp.v[j]);
-          op.v[j] = from_f32<T>(g);
-          part[i * VEC + j] += df * xf * r;
-        }
-        reinterpret_cast<P*>(dx + off)[i] = op;
+        for (int j = 0; j < VEC; ++j)
+          bwd_element<T, MODE>(to_f32(xp.v[j]), to_f32(dp.v[j]),
+                               to_f32(wp.v[j]),
+                               MODE != kPlain ? to_f32(op.v[j]) : 0.f, r, c,
+                               xo.v[j], zo.v[j], part[i * VEC + j]);
+        reinterpret_cast<P*>(dx + off)[i] = xo;
+        if constexpr (MODE == kGate) reinterpret_cast<P*>(dz + off)[i] = zo;
       }
     }
   }
@@ -314,14 +379,15 @@ __global__ void __launch_bounds__(kBwdThreads)
 // One warp per row: see (1) in the header.  NP packs of VEC a lane.
 constexpr int kRowWarps = 8;
 
-// One block an SM: a lane holds up to 6 packs each of x, dy and dh and 6
-// VEC dw sums, which at 128 registers (two blocks an SM) spill.
-template <typename T, int VEC, int NP, bool RESID>
+// One block an SM: a lane holds up to 6 packs each of x, dy and dh (or z)
+// and 6 VEC dw sums, which at 128 registers (two blocks an SM) spill.
+template <typename T, int VEC, int NP, int MODE>
 __global__ void __launch_bounds__(kRowWarps * 32, 1)
     rmsnorm_bwd_rows(const T* __restrict__ x, const T* __restrict__ w,
-                     const T* __restrict__ dy, const T* __restrict__ dh,
-                     T* __restrict__ dx, float* __restrict__ partial,
-                     int rows, int d, float eps) {
+                     const T* __restrict__ dy, const T* __restrict__ o,
+                     T* __restrict__ dx, T* __restrict__ dz,
+                     float* __restrict__ partial, int rows, int d,
+                     float eps) {
   using P = Pack<T, VEC>;
   // the tree's upper halves, column (k VEC + j) 32 + lane: conflict free
   __shared__ float red[kRowWarps / 2][NP * VEC * 32];
@@ -340,14 +406,15 @@ __global__ void __launch_bounds__(kRowWarps * 32, 1)
     const size_t off = (size_t)row * d;
     const P* xr = reinterpret_cast<const P*>(x + off);
     const P* dyr = reinterpret_cast<const P*>(dy + off);
-    P xp[NP], dp[NP], hp[NP];
+    P xp[NP], dp[NP], op[NP];
 #pragma unroll
     for (int k = 0; k < NP; ++k) {
       const int i = lane + 32 * k;
       if (i < nvec) {
         xp[k] = xr[i];
         dp[k] = dyr[i];
-        if constexpr (RESID) hp[k] = reinterpret_cast<const P*>(dh + off)[i];
+        if constexpr (MODE != kPlain)
+          op[k] = reinterpret_cast<const P*>(o + off)[i];
       }
     }
     float sxx = 0.f, sgx = 0.f;
@@ -358,9 +425,10 @@ __global__ void __launch_bounds__(kRowWarps * 32, 1)
         const P wp = wr[i];
 #pragma unroll
         for (int j = 0; j < VEC; ++j) {
-          const float xf = to_f32(xp[k].v[j]);
-          sxx += xf * xf;
-          sgx += to_f32(dp[k].v[j]) * to_f32(wp.v[j]) * xf;
+          const float g = norm_in<T, MODE>(
+              to_f32(xp[k].v[j]), MODE == kGate ? to_f32(op[k].v[j]) : 0.f);
+          sxx += g * g;
+          sgx += to_f32(dp[k].v[j]) * to_f32(wp.v[j]) * g;
         }
       }
     }
@@ -373,16 +441,15 @@ __global__ void __launch_bounds__(kRowWarps * 32, 1)
       const int i = lane + 32 * k;
       if (i < nvec) {
         const P wp = wr[i];
-        P op;
+        P xo, zo;
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          const float xf = to_f32(xp[k].v[j]), df = to_f32(dp[k].v[j]);
-          float g = r * df * to_f32(wp.v[j]) - xf * c;
-          if constexpr (RESID) g += to_f32(hp[k].v[j]);
-          op.v[j] = from_f32<T>(g);
-          dw[k][j] += df * xf * r;
-        }
-        reinterpret_cast<P*>(dx + off)[i] = op;
+        for (int j = 0; j < VEC; ++j)
+          bwd_element<T, MODE>(to_f32(xp[k].v[j]), to_f32(dp[k].v[j]),
+                               to_f32(wp.v[j]),
+                               MODE != kPlain ? to_f32(op[k].v[j]) : 0.f, r,
+                               c, xo.v[j], zo.v[j], dw[k][j]);
+        reinterpret_cast<P*>(dx + off)[i] = xo;
+        if constexpr (MODE == kGate) reinterpret_cast<P*>(dz + off)[i] = zo;
       }
     }
   }
@@ -518,93 +585,109 @@ cudaError_t launch_mode(const void* x, const void* r, const void* z,
   return launch<T, kPlain>(x, nullptr, w, out, h, rows, d, eps, s);
 }
 
-template <typename T, int VEC, bool RESID>
-cudaError_t launch_bwd_vec(const T* x, const T* w, const T* dy, const T* dh,
-                           T* dx, float* partial, int rows, int d, float eps,
-                           int nblk, cudaStream_t stream) {
+template <typename T, int VEC, int MODE>
+cudaError_t launch_bwd_vec(const T* x, const T* w, const T* dy, const T* o,
+                           T* dx, T* dz, float* partial, int rows, int d,
+                           float eps, int nblk, cudaStream_t stream) {
   const int n = d / VEC;
   const int threads = n >= kBwdThreads ? kBwdThreads : (n + 31) / 32 * 32;
   const int packs = (n + threads - 1) / threads;
   if (packs <= 1)
-    rmsnorm_bwd_kernel<T, VEC, 1, RESID><<<nblk, threads, 0, stream>>>(
-        x, w, dy, dh, dx, partial, rows, d, eps);
+    rmsnorm_bwd_kernel<T, VEC, 1, MODE><<<nblk, threads, 0, stream>>>(
+        x, w, dy, o, dx, dz, partial, rows, d, eps);
   else if (packs <= 2)
-    rmsnorm_bwd_kernel<T, VEC, 2, RESID><<<nblk, threads, 0, stream>>>(
-        x, w, dy, dh, dx, partial, rows, d, eps);
+    rmsnorm_bwd_kernel<T, VEC, 2, MODE><<<nblk, threads, 0, stream>>>(
+        x, w, dy, o, dx, dz, partial, rows, d, eps);
   else if (packs <= 4)
-    rmsnorm_bwd_kernel<T, VEC, 4, RESID><<<nblk, threads, 0, stream>>>(
-        x, w, dy, dh, dx, partial, rows, d, eps);
+    rmsnorm_bwd_kernel<T, VEC, 4, MODE><<<nblk, threads, 0, stream>>>(
+        x, w, dy, o, dx, dz, partial, rows, d, eps);
   else
-    rmsnorm_bwd_kernel<T, VEC, 0, RESID><<<nblk, threads, 0, stream>>>(
-        x, w, dy, dh, dx, partial, rows, d, eps);
+    rmsnorm_bwd_kernel<T, VEC, 0, MODE><<<nblk, threads, 0, stream>>>(
+        x, w, dy, o, dx, dz, partial, rows, d, eps);
   return cudaGetLastError();
 }
 
-template <typename T, int NP, bool RESID>
-void launch_rows(const T* x, const T* w, const T* dy, const T* dh, T* dx,
-                 float* partial, int rows, int d, float eps, int nblk,
+template <typename T, int NP, int MODE>
+void launch_rows(const T* x, const T* w, const T* dy, const T* o, T* dx,
+                 T* dz, float* partial, int rows, int d, float eps, int nblk,
                  cudaStream_t stream) {
-  rmsnorm_bwd_rows<T, 16 / sizeof(T), NP, RESID>
-      <<<nblk, kRowWarps * 32, 0, stream>>>(x, w, dy, dh, dx, partial, rows,
-                                            d, eps);
+  rmsnorm_bwd_rows<T, 16 / sizeof(T), NP, MODE>
+      <<<nblk, kRowWarps * 32, 0, stream>>>(x, w, dy, o, dx, dz, partial,
+                                            rows, d, eps);
 }
 
-template <typename T, bool RESID>
-void launch_rows_np(int np, const T* x, const T* w, const T* dy, const T* dh,
-                    T* dx, float* partial, int rows, int d, float eps,
+template <typename T, int MODE>
+void launch_rows_np(int np, const T* x, const T* w, const T* dy, const T* o,
+                    T* dx, T* dz, float* partial, int rows, int d, float eps,
                     int nblk, cudaStream_t stream) {
   if (np <= 1)
-    launch_rows<T, 1, RESID>(x, w, dy, dh, dx, partial, rows, d, eps, nblk, stream);
+    launch_rows<T, 1, MODE>(x, w, dy, o, dx, dz, partial, rows, d, eps, nblk,
+                            stream);
   else if (np <= 2)
-    launch_rows<T, 2, RESID>(x, w, dy, dh, dx, partial, rows, d, eps, nblk, stream);
+    launch_rows<T, 2, MODE>(x, w, dy, o, dx, dz, partial, rows, d, eps, nblk,
+                            stream);
   else if (np <= 4)
-    launch_rows<T, 4, RESID>(x, w, dy, dh, dx, partial, rows, d, eps, nblk, stream);
+    launch_rows<T, 4, MODE>(x, w, dy, o, dx, dz, partial, rows, d, eps, nblk,
+                            stream);
   else
-    launch_rows<T, 6, RESID>(x, w, dy, dh, dx, partial, rows, d, eps, nblk, stream);
+    launch_rows<T, 6, MODE>(x, w, dy, o, dx, dz, partial, rows, d, eps, nblk,
+                            stream);
 }
 
+// The first launch of the backward (the rows, and a row of dw partials a
+// block) for one MODE; *nblk is cut to the blocks it ran.
+template <typename T, int MODE>
+cudaError_t launch_bwd_rows(const T* x, const T* w, const T* dy, const T* o,
+                            T* dx, T* dz, float* partial, int rows, int d,
+                            float eps, int* nblk, bool vec,
+                            cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int np = (d / kVec + 31) / 32;        // packs a lane, a warp a row
+  if (vec && np <= 6) {
+    // a warp a row: one block an SM, at most one per kRowWarps rows
+    int sms = 0;
+    const cudaError_t err = sm_count(&sms);
+    if (err != cudaSuccess) return err;
+    const int warp_blocks = (rows + kRowWarps - 1) / kRowWarps;
+    *nblk = *nblk < warp_blocks ? *nblk : warp_blocks;
+    *nblk = *nblk < sms ? *nblk : sms;
+    launch_rows_np<T, MODE>(np, x, w, dy, o, dx, dz, partial, rows, d, eps,
+                            *nblk, stream);
+    return cudaGetLastError();
+  }
+  return vec ? launch_bwd_vec<T, kVec, MODE>(x, w, dy, o, dx, dz, partial,
+                                             rows, d, eps, *nblk, stream)
+             : launch_bwd_vec<T, 1, MODE>(x, w, dy, o, dx, dz, partial, rows,
+                                          d, eps, *nblk, stream);
+}
+
+// o: dh (residual mode), z (gate mode, dz written) or null (plain).
 template <typename T>
-cudaError_t launch_bwd(const void* x, const void* w, const void* dy,
-                       const void* dh, void* dx, void* dw, float* partial,
-                       int rows, int d, int nblk, float eps,
+cudaError_t launch_bwd(int mode, const void* x, const void* w, const void* dy,
+                       const void* o, void* dx, void* dz, void* dw,
+                       float* partial, int rows, int d, int nblk, float eps,
                        cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
   const T* dyt = static_cast<const T*>(dy);
-  const T* dht = static_cast<const T*>(dh);
+  const T* ot = static_cast<const T*>(o);
   T* dxt = static_cast<T*>(dx);
+  T* dzt = static_cast<T*>(dz);
   const bool vec = d % kVec == 0 && aligned16(x) && aligned16(w) &&
                    aligned16(dy) && aligned16(dx) &&
-                   (dh == nullptr || aligned16(dh));
-  const int np = (d / kVec + 31) / 32;        // packs a lane, a warp a row
+                   (o == nullptr || aligned16(o)) &&
+                   (dz == nullptr || aligned16(dz));
   cudaError_t err;
-  if (vec && np <= 6) {
-    // a warp a row: one block an SM, at most one per kRowWarps rows
-    int sms = 0;
-    err = sm_count(&sms);
-    if (err != cudaSuccess) return err;
-    const int warp_blocks = (rows + kRowWarps - 1) / kRowWarps;
-    nblk = nblk < warp_blocks ? nblk : warp_blocks;
-    nblk = nblk < sms ? nblk : sms;
-    if (dh != nullptr)
-      launch_rows_np<T, true>(np, xt, wt, dyt, dht, dxt, partial, rows, d,
-                              eps, nblk, stream);
-    else
-      launch_rows_np<T, false>(np, xt, wt, dyt, dht, dxt, partial, rows, d,
-                               eps, nblk, stream);
-    err = cudaGetLastError();
-  } else if (dh != nullptr) {
-    err = vec ? launch_bwd_vec<T, kVec, true>(xt, wt, dyt, dht, dxt, partial,
-                                              rows, d, eps, nblk, stream)
-              : launch_bwd_vec<T, 1, true>(xt, wt, dyt, dht, dxt, partial,
-                                           rows, d, eps, nblk, stream);
-  } else {
-    err = vec ? launch_bwd_vec<T, kVec, false>(xt, wt, dyt, dht, dxt, partial,
-                                               rows, d, eps, nblk, stream)
-              : launch_bwd_vec<T, 1, false>(xt, wt, dyt, dht, dxt, partial,
-                                            rows, d, eps, nblk, stream);
-  }
+  if (mode == kGate)
+    err = launch_bwd_rows<T, kGate>(xt, wt, dyt, ot, dxt, dzt, partial, rows,
+                                    d, eps, &nblk, vec, stream);
+  else if (mode == kResidual)
+    err = launch_bwd_rows<T, kResidual>(xt, wt, dyt, ot, dxt, dzt, partial,
+                                        rows, d, eps, &nblk, vec, stream);
+  else
+    err = launch_bwd_rows<T, kPlain>(xt, wt, dyt, ot, dxt, dzt, partial, rows,
+                                     d, eps, &nblk, vec, stream);
   if (err != cudaSuccess) return err;
   rmsnorm_bwd_dw<T><<<(d + 31) / 32, kDwWarps * 32, 0, stream>>>(
       partial, static_cast<T*>(dw), nblk, d);
@@ -629,13 +712,38 @@ extern "C" int rmsnorm_bwd(int dtype, const void* x, const void* w,
   if (rows <= 0 || d <= 0 || nblk <= 0 || nblk > rows)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int mode = dh != nullptr ? kResidual : kPlain;
   switch (dtype) {
     case kFloat32:
-      return launch_bwd<float>(x, w, dy, dh, dx, dw, partial, rows, d, nblk,
-                               eps, s);
+      return launch_bwd<float>(mode, x, w, dy, dh, dx, nullptr, dw, partial,
+                               rows, d, nblk, eps, s);
     case kBFloat16:
-      return launch_bwd<__nv_bfloat16>(x, w, dy, dh, dx, dw, partial, rows, d,
-                                       nblk, eps, s);
+      return launch_bwd<__nv_bfloat16>(mode, x, w, dy, dh, dx, nullptr, dw,
+                                       partial, rows, d, nblk, eps, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The gated norm's backward: x, z, dy, dx, dz (rows, d) contiguous; w, dw
+// (d,); all of one dtype; partial and the two launches as in rmsnorm_bwd.
+// dx = dg silu(z) and dz = dg x silu'(z), with (dg, dw) the norm's
+// backward at its input x silu(z).
+extern "C" int gated_rmsnorm_bwd(int dtype, const void* x, const void* z,
+                                 const void* w, const void* dy, void* dx,
+                                 void* dz, void* dw, float* partial, int rows,
+                                 int d, int nblk, float eps, void* stream) {
+  using namespace repro_torch;
+  if (rows <= 0 || d <= 0 || nblk <= 0 || nblk > rows || z == nullptr ||
+      dz == nullptr)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kFloat32:
+      return launch_bwd<float>(kGate, x, w, dy, z, dx, dz, dw, partial, rows,
+                               d, nblk, eps, s);
+    case kBFloat16:
+      return launch_bwd<__nv_bfloat16>(kGate, x, w, dy, z, dx, dz, dw,
+                                       partial, rows, d, nblk, eps, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -9,15 +9,15 @@ launches, so a run can show that its path went through the kernels.
 
 Outputs filled through ctypes carry no ``grad_fn``, so gradients on the
 card go through ``torch.autograd.Function``s whose backward is a kernel
-too: ``flash_attention``, ``rmsnorm`` and ``add_rmsnorm`` apply theirs
-(``_FlashAttention``, ``_RMSNorm``, ``_AddRMSNorm``) when grad mode is on
+too: ``flash_attention``, ``rmsnorm``, ``add_rmsnorm``, ``gated_rmsnorm``
+and ``ssd_chunk_kernel`` apply theirs (``_FlashAttention``, ``_RMSNorm``,
+``_AddRMSNorm``, ``_GatedRMSNorm``, ``_SSDChunk``) when grad mode is on
 and an input requires grad, and otherwise launch the forward alone, with
 nothing saved.  Their backward kernels are not themselves
 differentiable: a double backward raises.  The kernels without a
-backward (``gated_rmsnorm``, SSD, stencil, bitonic) refuse such inputs
-with ``check_no_grad`` (``KernelBackwardMissing``) rather than cut the
-graph without a word.  On the CPU the plain versions differentiate as
-usual.
+backward (stencil, bitonic) refuse such inputs with ``check_no_grad``
+(``KernelBackwardMissing``) rather than cut the graph without a word.
+On the CPU the plain versions differentiate as usual.
 
 Given ``meta`` tensors inside ``repro_torch.core.hlo.analyze``, a wrapper
 (and each Function's backward) launches nothing: it records the kernel's
@@ -45,9 +45,10 @@ from . import stencil as _stencil
 
 __all__ = ["flash_attention", "flash_attention_bwd", "rmsnorm",
            "rmsnorm_bwd", "add_rmsnorm", "add_rmsnorm_bwd", "gated_rmsnorm",
-           "ssd_chunk_kernel", "ssd_chunked", "stencil2d", "bitonic_stage",
-           "bitonic_block", "check_no_grad", "KernelBackwardMissing",
-           "launch_counts", "reset_launches", "ref"]
+           "gated_rmsnorm_bwd", "ssd_chunk_kernel", "ssd_chunk_bwd",
+           "ssd_chunked", "stencil2d", "bitonic_stage", "bitonic_block",
+           "check_no_grad", "KernelBackwardMissing", "launch_counts",
+           "reset_launches", "ref"]
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -116,12 +117,26 @@ def _norm_bwd_meta(x, w, dy, eps, dh=None):
             (torch.empty_like(x), torch.empty_like(w)))
 
 
+def _gated_norm_bwd_meta(x, z, w, dy, eps):
+    return (*cost.gated_rmsnorm_bwd(x, w),
+            (torch.empty_like(x), torch.empty_like(z), torch.empty_like(w)))
+
+
 def _ssd_meta(x, dt, cs, Bm, Cm):
     R, H, Q, P = x.shape
     N = Bm.shape[-1]
     return (*cost.ssd_chunk(x, Bm),
             (x.new_empty((R, H, Q, P), dtype=torch.float32),
              x.new_empty((R, H, N, P), dtype=torch.float32)))
+
+
+def _ssd_bwd_meta(x, dt, cs, Bm, Cm, dy, dS):
+    R, H, Q, P = x.shape
+    N = Bm.shape[-1]
+    f32 = (lambda *shape: x.new_empty(shape, dtype=torch.float32))
+    return (*cost.ssd_chunk_bwd(x, Bm),
+            (f32(R, H, Q, P), f32(R, H, Q), f32(R, H, Q), f32(R, H, Q, N),
+             f32(R, H, Q, N)))
 
 
 def _needs_grad(*tensors: torch.Tensor) -> bool:
@@ -143,10 +158,9 @@ def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
     if _needs_grad(*tensors):
         raise KernelBackwardMissing(
             f"{name}: the CUDA kernel has no backward, and an input requires "
-            f"grad.  Its backward comes with the port's mamba training "
-            f"slice; until then train on the plain path "
-            f"(cfg.replace(use_kernels=False)), or call under "
-            f"torch.no_grad() to serve")
+            f"grad.  No model trains through it; differentiate its plain "
+            f"version (CPU tensors, or ref.py), or call it under "
+            f"torch.no_grad()")
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -279,25 +293,84 @@ def add_rmsnorm_bwd(h, w, dout, dh=None, eps: float = 1e-6):
                    h, w, dout, eps, dh=dh)
 
 
+class _GatedRMSNorm(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, z, w, eps):
+        out = _kernel(gated_rmsnorm, _rms.gated_rmsnorm, _gated_norm_meta,
+                      x, z, w, eps)
+        ctx.save_for_backward(x, z, w)
+        ctx.eps = eps
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, z, w = ctx.saved_tensors
+        return (*gated_rmsnorm_bwd(x, z, w, dy, ctx.eps), None)
+
+
 def gated_rmsnorm(x, z, w, eps: float = 1e-6):
     """x, z (..., d), w (d,) -> rmsnorm(x * silu(z), w) (Mamba2's gated
-    norm), in one launch on the card."""
+    norm), in one launch on the card.  On the card, with grad, the
+    backward runs ``gated_rmsnorm_bwd``."""
     if _on_cpu(x, z, w):
         return ref.gated_rmsnorm_ref(x, z, w, eps)
-    check_no_grad("gated_rmsnorm", x, z, w)
+    if _needs_grad(x, z, w):
+        return _GatedRMSNorm.apply(x, z, w, eps)
     return _kernel(gated_rmsnorm, _rms.gated_rmsnorm, _gated_norm_meta,
                    x, z, w, eps)
+
+
+def gated_rmsnorm_bwd(x, z, w, dy, eps: float = 1e-6):
+    """Gradients (dx, dz, dw) of ``gated_rmsnorm(x, z, w)`` for the
+    incoming dy (``ref.gated_rmsnorm_bwd_ref``; two launches on the card,
+    counted as one call)."""
+    if _on_cpu(x, z, w, dy):
+        return ref.gated_rmsnorm_bwd_ref(x, z, w, dy, eps)
+    return _kernel(gated_rmsnorm_bwd, _rms.gated_rmsnorm_bwd,
+                   _gated_norm_bwd_meta, x, z, w, dy, eps)
+
+
+class _SSDChunk(torch.autograd.Function):
+    """The chunk's (y_diag, states); the backward takes both incoming
+    gradients (a zero one for an unread output)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, cs, Bm, Cm):
+        out = _kernel(ssd_chunk_kernel, _ssd.ssd_chunk, _ssd_meta,
+                      x, dt, cs, Bm, Cm)
+        ctx.save_for_backward(x, dt, cs, Bm, Cm)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy, dS):
+        return ssd_chunk_bwd(*ctx.saved_tensors, dy, dS)
 
 
 def ssd_chunk_kernel(x, dt, cs, Bm, Cm):
     """Intra-chunk SSD.  x (R,H,Q,P); dt/cs (R,H,Q); Bm/Cm (R,H,Q,N) ->
     (y_diag (R,H,Q,P) f32, states (R,H,N,P) f32); on the card f32 inputs
-    only (``kernels/ssd.py`` says what else the kernel takes)."""
+    only (``kernels/ssd.py`` says what else the kernel takes).  On the
+    card, with grad, the backward runs ``ssd_chunk_bwd``."""
     if _on_cpu(x, dt, cs, Bm, Cm):
         return ref.ssd_chunk_ref(x, dt, cs, Bm, Cm)
-    check_no_grad("ssd_chunk_kernel", x, dt, cs, Bm, Cm)
+    if _needs_grad(x, dt, cs, Bm, Cm):
+        return _SSDChunk.apply(x, dt, cs, Bm, Cm)
     return _kernel(ssd_chunk_kernel, _ssd.ssd_chunk, _ssd_meta,
                    x, dt, cs, Bm, Cm)
+
+
+def ssd_chunk_bwd(x, dt, cs, Bm, Cm, dy, dS):
+    """Gradients (dx, ddt, dcs, dB, dC) of ``ssd_chunk_kernel`` for the
+    incoming dy (R,H,Q,P) and dS (R,H,N,P), f32, dB and dC per head
+    (R,H,Q,N) (``ref.ssd_chunk_bwd_ref``; two launches on the card,
+    counted as one call; P <= 64 and N <= 128 there)."""
+    if _on_cpu(x, dt, cs, Bm, Cm, dy, dS):
+        return ref.ssd_chunk_bwd_ref(x, dt, cs, Bm, Cm, dy, dS)
+    return _kernel(ssd_chunk_bwd, _ssd.ssd_chunk_bwd, _ssd_bwd_meta,
+                   x, dt, cs, Bm, Cm, dy, dS)
 
 
 def ssd_chunked(x, dt, A, Bm, Cm, chunk: int = 256, initial_state=None,
@@ -416,7 +489,8 @@ def bitonic_block(x, size: int, block: int = 2048, offset: int = 0):
 
 _WRAPPERS = (flash_attention, rmsnorm, add_rmsnorm, gated_rmsnorm,
              ssd_chunk_kernel, stencil2d, bitonic_stage, bitonic_block,
-             flash_attention_bwd, rmsnorm_bwd, add_rmsnorm_bwd)
+             flash_attention_bwd, rmsnorm_bwd, add_rmsnorm_bwd,
+             gated_rmsnorm_bwd, ssd_chunk_bwd)
 
 
 def launch_counts() -> typing.Dict[str, int]:

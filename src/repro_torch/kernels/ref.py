@@ -150,24 +150,87 @@ def gated_rmsnorm_ref(x, z, w, eps: float = 1e-6):
     return rmsnorm_ref(x * torch.nn.functional.silu(z), w, eps)
 
 
+def gated_rmsnorm_bwd_ref(x, z, w, dy, eps: float = 1e-6):
+    """Gradients (dx, dz, dw) of ``gated_rmsnorm_ref(x, z, w)`` for the
+    incoming dy, in f32, each rounded once to its input's dtype at the
+    end.  With s = silu(z) and g = x * s, rounded as the forward rounds
+    them, (dg, dw) is the rmsnorm backward at g, and
+
+        dx = dg * s        dz = dg * x * sig(z) * (1 + z * (1 - sig(z)))
+    """
+    s = torch.nn.functional.silu(z)
+    dg, dw = _rmsnorm_bwd_f32(x * s, w, dy, eps)
+    zf = _f32(z)
+    sig = torch.sigmoid(zf)
+    dx = dg * _f32(s)
+    dz = dg * _f32(x) * sig * (1 + zf * (1 - sig))
+    return dx.to(x.dtype), dz.to(z.dtype), dw.to(w.dtype)
+
+
+def _causal_decay(cs):
+    """exp(cs_i - cs_j) for i >= j, else 0: (..., Q, Q) from cs (..., Q).
+    exp of -inf above the diagonal, not where(mask, exp(seg), 0), whose
+    backward is 0 * inf = NaN wherever exp(seg) overflows there."""
+    Q = cs.shape[-1]
+    mask = torch.ones(Q, Q, dtype=torch.bool, device=cs.device).tril()
+    seg = cs[..., :, None] - cs[..., None, :]
+    return torch.exp(seg.masked_fill(~mask, -math.inf))
+
+
 def ssd_chunk_ref(x, dt, cs, Bm, Cm):
     """Intra-chunk SSD.  x (R,H,Q,P); dt/cs (R,H,Q); Bm/Cm (R,H,Q,N)
-    -> (y_diag (R,H,Q,P) f32, states (R,H,N,P) f32), f32 math:
+    -> (y_diag (R,H,Q,P) f32, states (R,H,N,P) f32), f32 math (f64
+    stays f64):
 
         att[i,j] = (C_i . B_j) * exp(cs_i - cs_j) * dt_j   (i >= j, else 0)
         y_diag   = att @ x
         states   = (B * exp(cs_last - cs) * dt)^T @ x
     """
-    x, dt, cs, Bm, Cm = (t.float() for t in (x, dt, cs, Bm, Cm))
-    Q = x.shape[2]
-    seg = cs[..., :, None] - cs[..., None, :]              # (R,H,Q,Q) i,j
-    mask = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
-    decay = torch.where(mask, torch.exp(seg), 0.0)
+    x, dt, cs, Bm, Cm = (_f32(t) for t in (x, dt, cs, Bm, Cm))
+    decay = _causal_decay(cs)                              # (R,H,Q,Q) i,j
     att = torch.einsum("rhin,rhjn->rhij", Cm, Bm) * decay * dt[..., None, :]
     y = torch.einsum("rhij,rhjp->rhip", att, x)
     w = torch.exp(cs[..., -1:] - cs) * dt                  # (R,H,Q)
     s = torch.einsum("rhqn,rhq,rhqp->rhnp", Bm, w, x)
     return y, s
+
+
+def ssd_chunk_bwd_ref(x, dt, cs, Bm, Cm, dy, dS):
+    """Gradients (dx, ddt, dcs, dB, dC) of ``ssd_chunk_ref`` for the
+    incoming dy (R,H,Q,P) and dS (R,H,N,P), in closed form, f32 (f64
+    stays f64); dB and dC per head, (R,H,Q,N).  Per (chunk, head), with
+    G = C B^T, Lm_ij = exp(cs_i - cs_j) [i >= j], att = G * Lm * dt_j,
+    w_j = exp(cs_last - cs_j) dt_j, dA = dy x^T, Pm = dA * att and
+    u_j = sum_{n,p} B_jn x_jp dS_np:
+
+        dx    = att^T dy + (B * w) dS
+        dC    = (dA * Lm * dt_j) B
+        dB    = (dA * Lm * dt_j)^T C + w * (x dS^T)
+        ddt_j = sum_i dA_ij G_ij Lm_ij + exp(cs_last - cs_j) u_j
+        dcs_i = sum_j Pm_ij - sum_k Pm_ki - w_i u_i  (+ sum_j w_j u_j at
+                the last row)
+    """
+    x, dt, cs, Bm, Cm, dy, dS = (_f32(t) for t in (x, dt, cs, Bm, Cm, dy,
+                                                   dS))
+    Lm = _causal_decay(cs)                                 # (R,H,Q,Q) i,j
+    Ldt = Lm * dt[..., None, :]
+    G = torch.einsum("rhin,rhjn->rhij", Cm, Bm)
+    att = G * Ldt
+    dA = torch.einsum("rhip,rhjp->rhij", dy, x)
+    dG = dA * Ldt
+    Pm = dA * att
+    decay = torch.exp(cs[..., -1:] - cs)                   # (R,H,Q)
+    w = decay * dt
+    xdS = torch.einsum("rhjp,rhnp->rhjn", x, dS)
+    u = (Bm * xdS).sum(-1)
+    dx = torch.einsum("rhij,rhip->rhjp", att, dy) \
+        + torch.einsum("rhjn,rhnp->rhjp", Bm * w[..., None], dS)
+    dC = torch.einsum("rhij,rhjn->rhin", dG, Bm)
+    dB = torch.einsum("rhij,rhin->rhjn", dG, Cm) + w[..., None] * xdS
+    ddt = (dA * G * Lm).sum(-2) + decay * u
+    dcs = Pm.sum(-1) - Pm.sum(-2) - w * u
+    dcs[..., -1] += (w * u).sum(-1)
+    return dx, ddt, dcs, dB, dC
 
 
 def stencil2d_ref(img, kern):

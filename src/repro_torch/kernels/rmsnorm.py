@@ -7,11 +7,13 @@ fuse the op in front of the norm (the residual add, or Mamba2's gate)
 into the same launch (the design note is at the top of the source).
 The same source holds the backward of the plain and the residual form
 (``rmsnorm_bwd``: two launches, a warp per row where the row fits its
-registers, then the sum of the first launch's per-block dw partials).
-This module checks what the kernels take and raises on anything else;
-the public wrappers with the launch counters are ``ops.rmsnorm``,
-``ops.add_rmsnorm``, ``ops.gated_rmsnorm``, ``ops.rmsnorm_bwd`` and
-``ops.add_rmsnorm_bwd``.
+registers, then the sum of the first launch's per-block dw partials) and
+of the gated form (``gated_rmsnorm_bwd``: the same launches, the gate
+recomputed from x and z).  This module checks what the kernels take and
+raises on anything else; the public wrappers with the launch counters
+are ``ops.rmsnorm``, ``ops.add_rmsnorm``, ``ops.gated_rmsnorm``,
+``ops.rmsnorm_bwd``, ``ops.add_rmsnorm_bwd`` and
+``ops.gated_rmsnorm_bwd``.
 """
 from __future__ import annotations
 
@@ -29,6 +31,9 @@ _SIGNATURES = {
     "rmsnorm_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 7
                     + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p],
                     ctypes.c_int),
+    "gated_rmsnorm_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                          + [ctypes.c_int] * 3
+                          + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
 }
 # the block-per-row backward's grid: at most this many blocks an SM (the
 # warp-per-row kernel takes at most one)
@@ -101,32 +106,51 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     the gradient of both addends.  x (..., d) contiguous, w (d,), dy and
     dh of x's shape (made contiguous: a copy only if they are not), one
     CUDA device, one dtype (f32 or bf16); dx in x's dtype, dw in w's."""
-    operands = [("x", x), ("w", w), ("dy", dy)] + (
-        [] if dh is None else [("dh", dh)])
+    return _bwd("rmsnorm_bwd", x, w, dy, eps, dh=dh)
+
+
+def gated_rmsnorm_bwd(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                      dy: torch.Tensor, eps: float = 1e-6):
+    """Gradients (dx, dz, dw) of ``gated_rmsnorm(x, z, w)`` for the
+    incoming dy, each rounded once to its input's dtype.  x, z (..., d)
+    contiguous, w (d,), dy of x's shape (made contiguous: a copy only if
+    it is not), one CUDA device, one dtype (f32 or bf16)."""
+    return _bwd("gated_rmsnorm_bwd", x, w, dy, eps, z=z)
+
+
+def _bwd(what, x, w, dy, eps, dh=None, z=None):
+    """Checks, allocates and launches the backward ``what`` (two launches:
+    the rows, then the sum of the per-block dw partials); returns (dx, dw),
+    or (dx, dz, dw) with the gate z."""
+    extra = [(n, t) for n, t in (("dh", dh), ("z", z)) if t is not None]
+    operands = [("x", x), ("w", w), ("dy", dy)] + extra
     if x.device.type != "cuda" or any(t.device != x.device
                                       for _, t in operands):
-        raise ValueError(f"rmsnorm_bwd kernel takes its operands on one CUDA "
+        raise ValueError(f"{what} kernel takes its operands on one CUDA "
                          f"device, got {[(n, str(t.device)) for n, t in operands]}")
     if x.dtype not in build.DTYPES or any(t.dtype != x.dtype
                                           for _, t in operands):
-        raise TypeError(f"rmsnorm_bwd kernel takes f32 or bf16 operands of "
+        raise TypeError(f"{what} kernel takes f32 or bf16 operands of "
                         f"one dtype, got {[(n, t.dtype) for n, t in operands]}")
     d = x.shape[-1] if x.dim() else 0
     if d == 0 or tuple(w.shape) != (d,):
-        raise ValueError(f"rmsnorm_bwd kernel takes x (..., d>0) and w (d,), "
+        raise ValueError(f"{what} kernel takes x (..., d>0) and w (d,), "
                          f"got {tuple(x.shape)} and {tuple(w.shape)}")
     if any(t.shape != x.shape for n, t in operands if n != "w"):
-        raise ValueError(f"rmsnorm_bwd kernel takes dy and dh of x's shape "
+        raise ValueError(f"{what} kernel takes dy, dh and z of x's shape "
                          f"{tuple(x.shape)}, got "
                          f"{[(n, tuple(t.shape)) for n, t in operands]}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("rmsnorm_bwd kernel takes contiguous x and w")
+    if not (x.is_contiguous() and w.is_contiguous()
+            and (z is None or z.is_contiguous())):
+        raise ValueError(f"{what} kernel takes contiguous x, w (and z)")
     rows = x.numel() // d
     if rows >= 2 ** 31:
-        raise ValueError(f"rmsnorm_bwd kernel takes < 2^31 rows, got {rows}")
+        raise ValueError(f"{what} kernel takes < 2^31 rows, got {rows}")
     dx = torch.empty_like(x)
+    dz = None if z is None else torch.empty_like(z)
+    grads = (dx,) if z is None else (dx, dz)
     if rows == 0:
-        return dx, torch.zeros_like(w)
+        return (*grads, torch.zeros_like(w))
     dy = dy.contiguous()
     dh = None if dh is None else dh.contiguous()
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
@@ -134,10 +158,18 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     dw = torch.empty_like(w)
     partial = torch.empty((nblk, d), dtype=torch.float32, device=x.device)
     lib = build.load("rmsnorm", _SIGNATURES)
-    err = lib.rmsnorm_bwd(build.DTYPES[x.dtype], x.data_ptr(), w.data_ptr(),
-                          dy.data_ptr(), None if dh is None else dh.data_ptr(),
-                          dx.data_ptr(), dw.data_ptr(), partial.data_ptr(),
-                          rows, d, nblk, eps,
-                          torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(lib, err, "rmsnorm_bwd launch")
-    return dx, dw
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if z is None:
+        err = lib.rmsnorm_bwd(build.DTYPES[x.dtype], x.data_ptr(),
+                              w.data_ptr(), dy.data_ptr(),
+                              None if dh is None else dh.data_ptr(),
+                              dx.data_ptr(), dw.data_ptr(),
+                              partial.data_ptr(), rows, d, nblk, eps, stream)
+    else:
+        err = lib.gated_rmsnorm_bwd(build.DTYPES[x.dtype], x.data_ptr(),
+                                    z.data_ptr(), w.data_ptr(), dy.data_ptr(),
+                                    dx.data_ptr(), dz.data_ptr(),
+                                    dw.data_ptr(), partial.data_ptr(), rows,
+                                    d, nblk, eps, stream)
+    build.check(lib, err, f"{what} launch")
+    return (*grads, dw)

@@ -61,7 +61,11 @@ def ssd_reference(x, dt, A, Bm, Cm, chunk: int = 256, initial_state=None,
     # ---- intra-chunk (diagonal blocks) --------------------------------
     seg = cs[:, :, :, None, :] - cs[:, :, None, :, :]      # (B,C,Q,Q,H) i,j
     mask = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
-    decay = torch.where(mask[None, None, :, :, None], torch.exp(seg), 0.0)
+    # exp of -inf above the diagonal, not where(mask, exp(seg), 0): the
+    # same values, but exp(seg) overflows there once the chunk's decay
+    # spans more than 88, and its backward would take 0 * inf = NaN
+    decay = torch.exp(seg.masked_fill(~mask[None, None, :, :, None],
+                                      -math.inf))
     qk = torch.einsum("bcign,bcjgn->bcijg", Cc, Bc)        # (B,C,Q,Q,G)
     hpg = H // G
     att = (qk[..., :, None]

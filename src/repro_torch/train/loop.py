@@ -14,8 +14,8 @@ restart, elastic re-mesh, stragglers.
 Where the port parts from the reference (``loop.py:130``, which treats
 every exception of a step as a node failure): an error that marks a
 fault of the program, not of a node -- ``KernelBackwardMissing``, raised
-when a kernel without a backward (mamba's SSD and gated norm on the
-card) would need one -- is re-raised at once.  It raises the same way on
+when a kernel without a backward (stencil or bitonic on the card) would
+need one -- is re-raised at once.  It raises the same way on
 every replay, so restoring would loop forever.  Every other exception
 takes the reference's restore path.
 

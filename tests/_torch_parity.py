@@ -1,8 +1,11 @@
 """Helpers shared by the tests/test_torch_*.py parity tests: one set of
 weights for both frameworks, built by the JAX package and converted."""
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from repro.models import api as japi
 from repro.models import get_config as jget_config
@@ -48,3 +51,31 @@ def spy_norms(monkeypatch):
             return _real(*args, **kwargs)
         monkeypatch.setattr(ops, name, spy)
     return calls
+
+
+def loss_and_grads(params, cfg, batch):
+    """(loss, gradients as a tree like ``params``) of the port's
+    ``api.loss``, on a deep copy of ``params``."""
+    from repro_torch.models import api
+    from repro_torch.train import optim
+    p = copy.deepcopy(params)
+    flat = optim.leaves(p)
+    for t in flat:
+        t.requires_grad_(True)
+    loss = api.loss(p, cfg, batch)
+    return loss.detach(), optim.unflatten(p, torch.autograd.grad(loss, flat))
+
+
+def assert_leaves_close(got, want, tol):
+    """Each leaf of the port's tree ``got`` within tol * the max |value| of
+    the same leaf of the JAX tree ``want``."""
+    from repro_torch.train import optim
+    flat_w = jax.tree_util.tree_flatten_with_path(want)[0]
+    assert len(flat_w) == len(optim.leaves(got))
+    for path, w in flat_w:
+        g = got
+        for k in path:
+            g = g[k.key]
+        w = np.asarray(w, np.float32)
+        err = np.abs(g.detach().float().numpy() - w).max()
+        assert err <= tol * np.abs(w).max(), (path, err, np.abs(w).max())

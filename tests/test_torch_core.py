@@ -450,9 +450,15 @@ _WRAPPER_CALLS = {
         _meta(4, 8), _meta(8), _meta(4, 8), _meta(4, 8)),
     "gated_rmsnorm": lambda: ops.gated_rmsnorm(_meta(4, 8), _meta(4, 8),
                                                _meta(8)),
+    "gated_rmsnorm_bwd": lambda: ops.gated_rmsnorm_bwd(
+        _meta(4, 8), _meta(4, 8), _meta(8), _meta(4, 8)),
     "ssd_chunk_kernel": lambda: ops.ssd_chunk_kernel(
         _meta(1, 2, 4, 8), _meta(1, 2, 4), _meta(1, 2, 4),
         _meta(1, 2, 4, 16), _meta(1, 2, 4, 16)),
+    "ssd_chunk_bwd": lambda: ops.ssd_chunk_bwd(
+        _meta(1, 2, 4, 8), _meta(1, 2, 4), _meta(1, 2, 4),
+        _meta(1, 2, 4, 16), _meta(1, 2, 4, 16), _meta(1, 2, 4, 8),
+        _meta(1, 2, 16, 8)),
     "stencil2d": lambda: ops.stencil2d(_meta(8, 8), _meta(3, 3)),
     "bitonic_stage": lambda: ops.bitonic_stage(_meta(16), 1, 2),
     "bitonic_block": lambda: ops.bitonic_block(_meta(16), 2),

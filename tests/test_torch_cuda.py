@@ -13,7 +13,9 @@ kernel, whose 3xTF32 products keep f32's accuracy).  The backward
 kernels: f32 atol 1e-4 / rtol 1e-4 (sums of up to G * S products in
 another order), bf16 3e-2 (P and dS rounded to bf16 before their
 products, as the forward rounds P, and one rounding of each output); the
-forward's log-sum-exp atol 1e-4 / rtol 1e-4; model
+forward's log-sum-exp atol 1e-4 / rtol 1e-4; the SSD backward every
+output within 1e-4 of its max |value| (f32 sums of up to Q products in
+another order); the gated norm's backward as the other norms'; model
 gradients per leaf within 1e-4 of the leaf's max |g| (f32)."""
 import numpy as np
 import pytest
@@ -190,6 +192,60 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
         ops.ssd_chunk_kernel(x_strided, dt, dt, Bm, Bm)
 
 
+def _ssd_bwd_inputs(R, H, Q, P, N, shared, cuda, seed=20):
+    x = _rand((R, H, Q, P), seed, torch.float32, cuda)
+    dt = torch.nn.functional.softplus(_rand((R, H, Q), seed + 1,
+                                            torch.float32, cuda))
+    A = -torch.exp(_rand((H,), seed + 2, torch.float32, cuda))
+    cs = torch.cumsum(dt * A[None, :, None], dim=-1)
+    G = 1 if shared else H
+    Bm = _rand((R, G, Q, N), seed + 3, torch.float32, cuda).expand(R, H, Q, N)
+    Cm = _rand((R, G, Q, N), seed + 4, torch.float32, cuda).expand(R, H, Q, N)
+    dy = _rand((R, H, Q, P), seed + 5, torch.float32, cuda)
+    dS = _rand((R, H, N, P), seed + 6, torch.float32, cuda)
+    return x, dt, cs, Bm, Cm, dy, dS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,H,Q,P,N,shared", [
+    (8, 64, 256, 64, 128, True),    # mamba2-1.3b's training shape
+    (1, 64, 77, 64, 128, True),     # a short chunk
+    (1, 64, 1, 64, 128, True),      # one token
+    (2, 3, 200, 16, 8, False),      # ragged over 4 tiles, per-head B/C
+    (1, 2, 130, 5, 7, True),        # P and N off every granule
+    (1, 4, 64, 64, 128, False)])    # one whole tile
+def test_ssd_bwd_kernel_matches_plain(cuda, R, H, Q, P, N, shared):
+    args = _ssd_bwd_inputs(R, H, Q, P, N, shared, cuda)
+    n = ops.ssd_chunk_bwd.launches
+    got = ops.ssd_chunk_bwd(*args)
+    torch.cuda.synchronize()
+    assert ops.ssd_chunk_bwd.launches == n + 1
+    want = ref.ssd_chunk_bwd_ref(*args)
+    for name, g, w in zip(("dx", "ddt", "dcs", "dB", "dC"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        err = float((g - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), (name, err)
+
+
+@pytest.mark.cuda
+def test_ssd_bwd_kernel_is_deterministic(cuda):
+    args = _ssd_bwd_inputs(2, 64, 256, 64, 128, True, cuda, seed=30)
+    a, b = ops.ssd_chunk_bwd(*args), ops.ssd_chunk_bwd(*args)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_ssd_bwd_kernel_refuses_what_it_does_not_take(cuda):
+    x, dt, cs, Bm, Cm, dy, dS = _ssd_bwd_inputs(1, 2, 8, 65, 8, False, cuda)
+    with pytest.raises(ValueError, match="P <= 64"):
+        ops.ssd_chunk_bwd(x, dt, cs, Bm, Cm, dy, dS)
+    x, dt, cs, Bm, Cm, dy, dS = _ssd_bwd_inputs(1, 2, 8, 16, 8, False, cuda)
+    with pytest.raises(ValueError, match="dy"):
+        ops.ssd_chunk_bwd(x, dt, cs, Bm, Cm, dy[..., :8], dS)
+    with pytest.raises(TypeError):
+        ops.ssd_chunk_bwd(x, dt, cs, Bm, Cm, dy.double(), dS)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [5, 77, 300])
 def test_mamba_prefill_kernel_path_matches_plain(cuda, S):
@@ -342,6 +398,33 @@ def test_gated_rmsnorm_kernel_matches_plain(cuda, dtype, rows, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d", [(2048, 4096), (1, 4096), (995, 4096),
+                                    (37, 1536), (3, 100), (300, 64)])
+def test_gated_rmsnorm_bwd_kernel_matches_plain(cuda, dtype, rows, d):
+    """mamba2-1.3b's training rows (block a row: d = 4096), rows a warp's
+    registers hold (d = 1536, 64) and an odd width (the scalar path)."""
+    dt = getattr(torch, dtype)
+    x, z = _rand((rows, d), 46, dt, cuda), 2 * _rand((rows, d), 47, dt, cuda)
+    w = (1 + 0.1 * _rand((d,), 48, torch.float32, cuda)).to(dt)
+    dy = _rand((rows, d), 49, dt, cuda)
+    n = ops.gated_rmsnorm_bwd.launches
+    got = ops.gated_rmsnorm_bwd(x, z, w, dy)
+    torch.cuda.synchronize()
+    assert ops.gated_rmsnorm_bwd.launches == n + 1
+    want = ref.gated_rmsnorm_bwd_ref(x, z, w, dy)
+    tol = BWD_F32 if dtype == "float32" else BF16
+    assert all(g.dtype == dt for g in got)
+    _assert_close(got[0], want[0], tol)
+    _assert_close(got[1], want[1], tol)
+    scale = float(want[2].float().abs().max())
+    _assert_close(got[2], want[2], dict(atol=tol["atol"] * max(1.0, scale),
+                                        rtol=tol["rtol"]))
+    a, b = ops.gated_rmsnorm_bwd(x, z, w, dy), got
+    assert all(torch.equal(u, v) for u, v in zip(a, b))      # deterministic
+
+
+@pytest.mark.cuda
 def test_fused_kernels_refuse_what_they_do_not_take(cuda):
     x = _rand((4, 64), 46, torch.float32, cuda)
     with pytest.raises(ValueError, match="shape"):
@@ -408,27 +491,50 @@ def test_bs_sort_runs_no_plain_stage_on_the_card(cuda, L, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["mamba2-1.3b-smoke"])
-def test_loss_backward_on_the_kernel_path_raises(cuda, arch):
-    """The SSD and gated-norm kernels have no backward:
-    api.loss(...).backward() through them raises instead of cutting the
-    graph; the plain path differentiates, and the kernel path serves under
-    no_grad.  (qwen's kernels have theirs: test_qwen_grads_*.)"""
+@pytest.mark.parametrize("S", [32, 37])
+def test_mamba_grads_through_the_kernels_match_plain(cuda, S):
+    """mamba2-1.3b-smoke in f32 (Q = 8; S = 37 pads the last chunk):
+    every leaf's gradient through the SSD and gated-norm backward kernels
+    matches the plain path's, each backward kernel ran once per forward
+    call, and under no_grad the kernel path launches no backward."""
     from repro_torch.models import api, get_config
-    cfg = get_config(arch).replace(dtype="float32")
+    cfg = get_config("mamba2-1.3b-smoke")
     params = api.init(0, cfg, device=cuda)
-    toks = torch.randint(0, cfg.vocab_size, (2, 33), device=cuda,
+    toks = torch.randint(0, cfg.vocab_size, (2, S + 1), device=cuda,
                          generator=torch.Generator(cuda).manual_seed(1))
     batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
-    leaves = [t for t in _leaves(params) if t.is_floating_point()]
-    for t in leaves:
-        t.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        api.loss(params, cfg, batch).backward()
-    api.loss(params, cfg.replace(use_kernels=False), batch).backward()
-    assert all(t.grad is not None for t in leaves)
+    ops.reset_launches()
+    loss, got = _qwen_smoke_grads(params, cfg, batch)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    L = cfg.num_layers
+    assert counts == {"ssd_chunk_kernel": L, "ssd_chunk_bwd": L,
+                      "gated_rmsnorm": L, "gated_rmsnorm_bwd": L,
+                      "rmsnorm": 1, "rmsnorm_bwd": 1, "add_rmsnorm": L,
+                      "add_rmsnorm_bwd": L}
+    want_loss, want = _qwen_smoke_grads(params, cfg.replace(use_kernels=False),
+                                        batch)
+    assert abs(float(loss) - float(want_loss)) < 1e-4
+    for g, w in zip(got, want):
+        err = float((g - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), err
+    ops.reset_launches()
     with torch.no_grad():
         assert torch.isfinite(api.loss(params, cfg, batch))
+    assert ops.ssd_chunk_bwd.launches == ops.gated_rmsnorm_bwd.launches == 0
+
+
+@pytest.mark.cuda
+def test_wrappers_without_a_backward_refuse_on_the_card(cuda):
+    """MGMark's kernels have no backward: with an input that requires
+    grad they raise instead of cutting the graph."""
+    x = _rand((64,), 5, torch.float32, cuda).requires_grad_(True)
+    for call in (lambda: ops.stencil2d(x.reshape(8, 8),
+                                       torch.ones(3, 3, device=cuda)),
+                 lambda: ops.bitonic_stage(x, 1, 2),
+                 lambda: ops.bitonic_block(x, 2)):
+        with pytest.raises(ops.KernelBackwardMissing, match="no backward"):
+            call()
 
 
 def _leaves(tree):
@@ -727,11 +833,15 @@ def test_plain_backward_is_never_reached_on_the_card(cuda, monkeypatch):
         raise AssertionError("a plain version ran on the card")
     for name in ("flash_attention_ref", "flash_attention_lse_ref",
                  "flash_attention_bwd_ref", "rmsnorm_ref", "add_rmsnorm_ref",
-                 "rmsnorm_bwd_ref", "add_rmsnorm_bwd_ref"):
+                 "rmsnorm_bwd_ref", "add_rmsnorm_bwd_ref", "gated_rmsnorm_ref",
+                 "gated_rmsnorm_bwd_ref", "ssd_chunk_ref",
+                 "ssd_chunk_bwd_ref"):
         monkeypatch.setattr(ref, name, refuse)
-    for dtype in ("float32", "bfloat16"):
-        cfg = get_config("qwen2-1.5b-smoke").replace(attn_impl="flash",
-                                                     dtype=dtype)
+    for arch, dtype in (("qwen2-1.5b-smoke", "float32"),
+                        ("qwen2-1.5b-smoke", "bfloat16"),
+                        ("mamba2-1.3b-smoke", "float32"),
+                        ("mamba2-1.3b-smoke", "bfloat16")):
+        cfg = get_config(arch).replace(attn_impl="flash", dtype=dtype)
         params = api.init(0, cfg, device=cuda)
         toks = torch.randint(0, cfg.vocab_size, (2, 33), device=cuda,
                              generator=torch.Generator(cuda).manual_seed(5))
@@ -833,18 +943,27 @@ def test_loop_on_the_card_replays_through_the_kernels(cuda, tmp_path):
 
 
 @pytest.mark.cuda
-def test_mamba_loop_on_the_card_raises_at_once(cuda, tmp_path, capsys):
-    """Mamba's SSD and gated-norm kernels have no backward: the loop
-    re-raises KernelBackwardMissing at the first step, never replays."""
+def test_mamba_loop_on_the_card_trains_and_replays(cuda, tmp_path):
+    """mamba2-1.3b-smoke through the loop on the card with a fault at
+    step 3 and a checkpoint every 2: one restart, the replayed loss
+    bit-identical to its first run, the SSD and gated-norm backward
+    kernels launched once a layer of every step run."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import get_config
     from repro_torch.train.data import DataConfig
     from repro_torch.train.loop import LoopConfig, run
     cfg = get_config("mamba2-1.3b-smoke")
-    with pytest.raises(ops.KernelBackwardMissing, match="no backward"):
-        run(cfg, make_mesh((1, 1), ("data", "model")),
-            DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
-                       global_batch=2),
-            loop_cfg=LoopConfig(total_steps=3, ckpt_every=1,
-                                ckpt_dir=str(tmp_path)))
-    assert "FAILED" not in capsys.readouterr().out
+    ops.reset_launches()
+    rep = run(cfg, make_mesh((1, 1), ("data", "model")),
+              DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                         global_batch=2),
+              loop_cfg=LoopConfig(total_steps=5, ckpt_every=2,
+                                  ckpt_dir=str(tmp_path), async_ckpt=True),
+              fault_schedule={3: RuntimeError("injected")}, verbose=False)
+    assert (rep.restarts, rep.final_step, rep.steps_run) == (1, 5, 6)
+    assert rep.losses[3] == rep.losses[2]          # step 2, replayed
+    assert np.isfinite(rep.losses).all()
+    counts = ops.launch_counts()
+    for name in ("ssd_chunk_kernel", "ssd_chunk_bwd", "gated_rmsnorm",
+                 "gated_rmsnorm_bwd"):
+        assert counts[name] == rep.steps_run * cfg.num_layers, name

@@ -26,7 +26,8 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import api, get_config  # noqa: E402
 from repro_torch.train import optim  # noqa: E402
 
-from _torch_parity import shared_params  # noqa: E402
+from _torch_parity import (assert_leaves_close, loss_and_grads as _grads,  # noqa: E402
+                           shared_params)
 
 ARCH = "qwen2-1.5b-smoke"
 F32 = dict(atol=1e-5, rtol=1e-4)
@@ -38,26 +39,6 @@ def _rand(shape, seed, dtype=torch.float32, requires_grad=False):
     return torch.tensor(x, dtype=dtype, requires_grad=requires_grad)
 
 
-def _grads(params, cfg, batch):
-    p = copy.deepcopy(params)
-    flat = optim.leaves(p)
-    for t in flat:
-        t.requires_grad_(True)
-    loss = api.loss(p, cfg, batch)
-    return loss.detach(), optim.unflatten(p, torch.autograd.grad(loss, flat))
-
-
-def _assert_leaves_close(got, want, tol=LEAF_TOL):
-    """Each leaf within tol * its max |want|."""
-    flat_w = jax.tree_util.tree_flatten_with_path(want)[0]
-    assert len(flat_w) == len(optim.leaves(got))
-    for path, w in flat_w:
-        g = got
-        for k in path:
-            g = g[k.key]
-        w = np.asarray(w, np.float32)
-        err = np.abs(g.detach().float().numpy() - w).max()
-        assert err <= tol * np.abs(w).max(), (path, err, np.abs(w).max())
 
 
 def _batch(seed, B=2, S=19, mask=False):
@@ -85,7 +66,7 @@ def test_loss_grads_match_jax(attn_impl, mask):
     loss, got = _grads(tp, get_config(ARCH).replace(attn_impl=attn_impl),
                        {k: torch.from_numpy(v) for k, v in batch.items()})
     assert abs(float(loss) - float(want_loss)) < 1e-5
-    _assert_leaves_close(got, want)
+    assert_leaves_close(got, want, LEAF_TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -227,6 +208,155 @@ def test_rmsnorm_bwd_refs_pass_gradcheck_f64():
     assert torch.autograd.gradcheck(_PlainAddNorm.apply, (x, r, w))
 
 
+# the SSD chunk: R, H, Q, P, N, a head stride of 0 for B and C (as
+# ops.ssd_chunked passes them); Q in {1, 7, 64}, N != P
+SSD_CASES = [(2, 3, 1, 4, 6, False), (2, 3, 7, 5, 3, False),
+             (1, 2, 64, 16, 8, False), (2, 4, 7, 8, 16, True),
+             (1, 3, 64, 8, 16, True)]
+
+
+def _ssd_inputs(R, H, Q, P, N, shared, dtype=torch.float32, seed=0):
+    """x, dt (softplus), cs (cumsum of dt * A, A < 0), Bm, Cm, each
+    requiring grad; B and C (R,H,Q,N) views of (R,1,Q,N) when shared."""
+    rng = np.random.default_rng(seed)
+    t = (lambda a: torch.tensor(a, dtype=dtype))
+    x = t(rng.standard_normal((R, H, Q, P)))
+    dt = torch.nn.functional.softplus(t(rng.standard_normal((R, H, Q))))
+    A = -t(np.exp(rng.standard_normal(H)))
+    cs = torch.cumsum(dt * A[None, :, None], dim=-1)
+    G = 1 if shared else H
+    Bm = t(rng.standard_normal((R, G, Q, N)))
+    Cm = t(rng.standard_normal((R, G, Q, N)))
+    leaves = [a.requires_grad_(True) for a in (x, dt, cs, Bm, Cm)]
+    if shared:
+        return leaves, (x, dt, cs, Bm.expand(R, H, Q, N),
+                        Cm.expand(R, H, Q, N))
+    return leaves, tuple(leaves)
+
+
+def _ssd_bwd_summed(args, dy, dS, shared):
+    """ref.ssd_chunk_bwd_ref, dB and dC summed over the heads where B and
+    C are shared (what autograd of the expand does)."""
+    dx, ddt, dcs, dB, dC = ref.ssd_chunk_bwd_ref(
+        *(a.detach() for a in args), dy, dS)
+    if shared:
+        dB, dC = dB.sum(1, keepdim=True), dC.sum(1, keepdim=True)
+    return dx, ddt, dcs, dB, dC
+
+
+@pytest.mark.parametrize("R,H,Q,P,N,shared", SSD_CASES)
+def test_ssd_bwd_ref_matches_autograd(R, H, Q, P, N, shared):
+    leaves, args = _ssd_inputs(R, H, Q, P, N, shared)
+    y, s = ref.ssd_chunk_ref(*args)
+    dy, dS = _rand(y.shape, 7), _rand(s.shape, 8)
+    want = torch.autograd.grad((y, s), leaves, (dy, dS))
+    got = _ssd_bwd_summed(args, dy, dS, shared)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        torch.testing.assert_close(g, w, **F32)
+
+
+class _PlainSSD(torch.autograd.Function):
+    """ssd_chunk_ref with ssd_chunk_bwd_ref as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, dt, cs, Bm, Cm):
+        ctx.save_for_backward(x, dt, cs, Bm, Cm)
+        return ref.ssd_chunk_ref(x, dt, cs, Bm, Cm)
+
+    @staticmethod
+    def backward(ctx, dy, dS):
+        return ref.ssd_chunk_bwd_ref(*ctx.saved_tensors, dy, dS)
+
+
+@pytest.mark.parametrize("R,H,Q,P,N,shared", [
+    (1, 2, 1, 3, 2, False), (1, 2, 5, 3, 4, False), (2, 2, 4, 2, 3, True)])
+def test_ssd_bwd_ref_passes_gradcheck_f64(R, H, Q, P, N, shared):
+    leaves, _ = _ssd_inputs(R, H, Q, P, N, shared, torch.float64, seed=4)
+    x, dt, cs, Bm, Cm = leaves
+
+    def fn(x, dt, cs, Bm, Cm):
+        if shared:
+            Bm, Cm = Bm.expand(R, H, Q, N), Cm.expand(R, H, Q, N)
+        return _PlainSSD.apply(x, dt, cs, Bm, Cm)
+    assert torch.autograd.gradcheck(fn, tuple(t.detach().requires_grad_()
+                                              for t in leaves))
+
+
+@pytest.mark.parametrize("R,H,Q,P,N,shared", SSD_CASES)
+def test_ssd_bwd_ref_matches_jax_vjp(R, H, Q, P, N, shared):
+    """jax.vjp of the reference's plain SSD chunk (repro.kernels.ref), the
+    function its Pallas kernel computes, on the same numpy inputs."""
+    from repro.kernels import ref as jref
+    leaves, args = _ssd_inputs(R, H, Q, P, N, shared)
+    y, s = ref.ssd_chunk_ref(*args)
+    dy, dS = _rand(y.shape, 9), _rand(s.shape, 10)
+    jargs = [jnp.asarray(a.detach().numpy()) for a in args]
+    _, vjp = jax.vjp(jref.ssd_chunk_ref, *jargs)
+    want = vjp((jnp.asarray(dy.numpy()), jnp.asarray(dS.numpy())))
+    got = ref.ssd_chunk_bwd_ref(*(a.detach() for a in args), dy, dS)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=1e-4)
+
+
+def _gate_inputs(rows, d, dtype=torch.float32, seed=0):
+    return (_rand((rows, d), seed, dtype, True),
+            (2 * _rand((rows, d), seed + 1, dtype)).requires_grad_(True),
+            (1 + 0.3 * _rand((d,), seed + 2, dtype)).requires_grad_(True))
+
+
+@pytest.mark.parametrize("rows,d", [(1, 16), (7, 64), (3, 4096)])
+def test_gated_rmsnorm_bwd_ref_matches_autograd(rows, d):
+    x, z, w = _gate_inputs(rows, d)
+    out = ref.gated_rmsnorm_ref(x, z, w)
+    dy = _rand(out.shape, 4)
+    want = torch.autograd.grad(out, (x, z, w), dy)
+    got = ref.gated_rmsnorm_bwd_ref(x.detach(), z.detach(), w.detach(), dy)
+    torch.testing.assert_close(got, want, **F32)
+
+
+def test_gated_rmsnorm_bwd_ref_rounds_once_to_the_dtype():
+    """bf16 inputs: each gradient comes back in bf16, within bf16's
+    tolerance of autograd (which rounds at every eager op)."""
+    x, z, w = _gate_inputs(4, 64, torch.bfloat16)
+    out = ref.gated_rmsnorm_ref(x, z, w)
+    dy = _rand(out.shape, 5, torch.bfloat16)
+    want = torch.autograd.grad(out, (x, z, w), dy)
+    got = ref.gated_rmsnorm_bwd_ref(x.detach(), z.detach(), w.detach(), dy)
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    torch.testing.assert_close(got, want, atol=3e-2, rtol=3e-2)
+
+
+def test_gated_rmsnorm_bwd_ref_passes_gradcheck_f64():
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, z, w):
+            ctx.save_for_backward(x, z, w)
+            return ref.gated_rmsnorm_ref(x, z, w)
+
+        @staticmethod
+        def backward(ctx, dy):
+            return ref.gated_rmsnorm_bwd_ref(*ctx.saved_tensors, dy)
+    assert torch.autograd.gradcheck(Plain.apply,
+                                    _gate_inputs(3, 8, torch.float64, 6))
+
+
+@pytest.mark.parametrize("rows,d", [(5, 64), (2, 4096)])
+def test_gated_rmsnorm_bwd_ref_matches_jax_vjp(rows, d):
+    """jax.vjp of the reference's gated norm, rms_norm(y * silu(z), w)
+    (repro/models/ssm.py), on the same numpy inputs."""
+    from repro.models import layers as jlayers
+    x, z, w = (t.detach() for t in _gate_inputs(rows, d, seed=11))
+    dy = _rand((rows, d), 12)
+    _, vjp = jax.vjp(lambda a, b, c: jlayers.rms_norm(a * jax.nn.silu(b), c),
+                     *(jnp.asarray(t.numpy()) for t in (x, z, w)))
+    want = vjp(jnp.asarray(dy.numpy()))
+    got = ref.gated_rmsnorm_bwd_ref(x, z, w, dy)
+    for g, v in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(v), **F32)
+
+
 # ---------------------------------------------------------------------------
 # the autograd Functions of ops, their launchers stood in for by the plain
 # versions (the CUDA launchers run only on the card)
@@ -239,6 +369,7 @@ def plain_launchers(monkeypatch):
     every forward flash launch."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.kernels import ssd
     lse_flags = []
 
     def flash(q, k, v, causal=True, with_lse=False):
@@ -255,7 +386,12 @@ def plain_launchers(monkeypatch):
     monkeypatch.setattr(rms, "rmsnorm", ref.rmsnorm_ref)
     monkeypatch.setattr(rms, "add_rmsnorm", ref.add_rmsnorm_ref)
     monkeypatch.setattr(rms, "rmsnorm_bwd", norm_bwd)
-    return lse_flags
+    monkeypatch.setattr(rms, "gated_rmsnorm", ref.gated_rmsnorm_ref)
+    monkeypatch.setattr(rms, "gated_rmsnorm_bwd", ref.gated_rmsnorm_bwd_ref)
+    monkeypatch.setattr(ssd, "ssd_chunk", ref.ssd_chunk_ref)
+    monkeypatch.setattr(ssd, "ssd_chunk_bwd", ref.ssd_chunk_bwd_ref)
+    yield lse_flags
+    ops.reset_launches()
 
 
 def test_kernel_path_grads_go_through_the_functions(plain_launchers):
@@ -290,6 +426,52 @@ def test_kernel_path_grads_go_through_the_functions(plain_launchers):
     assert plain_launchers == [False] * L
 
 
+MAMBA = "mamba2-1.3b-smoke"
+
+
+@pytest.mark.parametrize("S", [19, 16])
+def test_mamba_kernel_path_grads_go_through_the_functions(plain_launchers, S):
+    """mamba2-1.3b-smoke's api.loss through ops' Functions (Q = 8: a
+    ragged S pads the last chunk): the gradients of the plain path, the
+    SSD and gated-norm backward wrappers each called once per forward
+    call, once a layer; under no_grad no backward."""
+    _, tp = shared_params(MAMBA)
+    cfg = get_config(MAMBA)
+    toks = np.random.default_rng(13).integers(0, cfg.vocab_size, (2, S + 1))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "targets": torch.from_numpy(toks[:, 1:])}
+    want_loss, want = _grads(tp, cfg.replace(use_kernels=False), batch)
+    ops.reset_launches()
+    loss, got = _grads(tp, cfg, batch)
+    L = cfg.num_layers
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    assert counts == {"ssd_chunk_kernel": L, "ssd_chunk_bwd": L,
+                      "gated_rmsnorm": L, "gated_rmsnorm_bwd": L,
+                      "rmsnorm": 1, "rmsnorm_bwd": 1, "add_rmsnorm": L,
+                      "add_rmsnorm_bwd": L}
+    assert abs(float(loss) - float(want_loss)) < 1e-6
+    for g, w in zip(optim.leaves(got), optim.leaves(want)):
+        torch.testing.assert_close(g, w, atol=LEAF_TOL * float(w.abs().max()),
+                                   rtol=0)
+    ops.reset_launches()
+    with torch.no_grad():
+        api.loss(tp, cfg, batch)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    assert counts == {"ssd_chunk_kernel": L, "gated_rmsnorm": L,
+                      "rmsnorm": 1, "add_rmsnorm": L}
+
+
+def test_ssd_function_takes_an_unread_output(plain_launchers):
+    """Either output of the SSD chunk may go unread: its gradient arrives
+    as zeros, and the backward is the plain one with that zero."""
+    leaves, args = _ssd_inputs(1, 2, 7, 4, 3, True)
+    y, s = ops.ssd_chunk_kernel(*args)
+    dy = _rand(y.shape, 3)
+    got = torch.autograd.grad(y, leaves, dy)
+    want = _ssd_bwd_summed(args, dy, torch.zeros_like(s), True)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
 def test_add_rmsnorm_function_takes_a_missing_gradient(plain_launchers):
     """Either output of add_rmsnorm may be unread: its gradient arrives as
     None, and x and r get the same gradient."""
@@ -307,11 +489,21 @@ def test_add_rmsnorm_function_takes_a_missing_gradient(plain_launchers):
     assert torch.equal(gx, dy) and torch.equal(gr, dy)
 
 
-def test_wrappers_without_a_backward_still_refuse(plain_launchers):
-    w = torch.ones(8, requires_grad=True)
-    x = torch.ones(2, 8)
-    with pytest.raises(RuntimeError, match="no backward.*mamba training"):
-        ops.gated_rmsnorm(x, x, w)
+@pytest.mark.parametrize("name", ["stencil2d", "bitonic_stage",
+                                  "bitonic_block"])
+def test_wrappers_without_a_backward_still_refuse(plain_launchers, name):
+    """MGMark's kernels have no backward: on the card an input that
+    requires grad raises KernelBackwardMissing before anything launches."""
+    x = torch.ones(16, requires_grad=True)
+    call = {"stencil2d": lambda: ops.stencil2d(x.reshape(4, 4),
+                                               torch.ones(3, 3)),
+            "bitonic_stage": lambda: ops.bitonic_stage(x, 1, 2),
+            "bitonic_block": lambda: ops.bitonic_block(x, 2)}[name]
+    before = ops.launch_counts()
+    with pytest.raises(ops.KernelBackwardMissing,
+                       match=f"{name}: .*no backward.*No model trains"):
+        call()
+    assert ops.launch_counts() == before
 
 
 def test_backward_kernels_refuse_a_double_backward(plain_launchers):

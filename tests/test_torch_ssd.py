@@ -155,6 +155,57 @@ def test_ssd_chunked_matches_naive_recurrence():
         _close(got, want, SSD_TOL)
 
 
+@pytest.mark.parametrize("impl", ["chunked", "reference"])
+def test_ssd_gradients_stay_finite_where_the_decay_overflows(impl):
+    """A chunk whose decay spans more than 88 (dt 2, A -16, Q 64, as
+    mamba2-1.3b's random 48 layers reach at full width): exp(cs_i - cs_j)
+    overflows above the diagonal.  The port's gradients are finite: those
+    of x, B and C equal jax.grad of the reference's ssd_reference and
+    ssd_scan, and that of dt the port's own f64 gradient, where the
+    reference's is NaN (it takes exp there under a where; a reference
+    caveat, ROADMAP §3).  The intra-chunk part's autograd equals
+    ssd_chunk_bwd_ref."""
+    import jax
+    B, L, H, P, N = 1, 64, 2, 4, 3
+    x, _, _, Bm, Cm = _ssd_inputs(B, L, H, P, N, seed=70)
+    dt = np.full((B, L, H), 2.0, np.float32)
+    A = np.array([-16.0, -8.0], np.float32)
+    dy = _rand((B, L, H, P), 71)
+    fn = ops.ssd_chunked if impl == "chunked" else ssm.ssd_reference
+
+    def grads(dtype):
+        leaves = [t.to(dtype).requires_grad_(True)
+                  for t in _t(x, dt, Bm, Cm)]
+        tx, tdt, tB, tC = leaves
+        y = fn(tx, tdt, torch.from_numpy(A).to(dtype), tB, tC, chunk=L)
+        return torch.autograd.grad(y, leaves,
+                                   torch.from_numpy(dy).to(y.dtype))
+    got = grads(torch.float32)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    _close(got[1], grads(torch.float64)[1], SSD_TOL)
+    for jfn in (jssm.ssd_reference, jssm.ssd_scan):
+        want = jax.grad(lambda a, b, c, d: (jfn(a, b, jnp.asarray(A), c, d,
+                                                chunk=L) * dy).sum(),
+                        argnums=(0, 1, 2, 3))(*_j(x, dt, Bm, Cm))
+        for i in (0, 2, 3):
+            _close(got[i], want[i], SSD_TOL)
+        assert np.isnan(np.asarray(want[1])).any()
+    # the intra-chunk part: autograd of the plain version, the closed form
+    xr = torch.from_numpy(x).permute(0, 2, 1, 3)           # (R=1,H,Q,P)
+    dtr = torch.from_numpy(dt).permute(0, 2, 1)
+    cs = torch.cumsum(dtr * torch.from_numpy(A)[None, :, None], dim=-1)
+    Br = torch.from_numpy(Bm).reshape(1, 1, L, N).expand(1, H, L, N)
+    Cr = torch.from_numpy(Cm).reshape(1, 1, L, N).expand(1, H, L, N)
+    inputs = [t.clone().requires_grad_(True) for t in (xr, dtr, cs, Br, Cr)]
+    dys = (torch.from_numpy(_rand((1, H, L, P), 72)),
+           torch.from_numpy(_rand((1, H, N, P), 73)))
+    got = torch.autograd.grad(ref.ssd_chunk_ref(*inputs), inputs, dys)
+    want = ref.ssd_chunk_bwd_ref(*(t.detach() for t in inputs), *dys)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
 def test_ssd_chunked_takes_one_group_only():
     x, dt, A, Bm, Cm = _t(*_ssd_inputs(1, 8, 4, 8, 4, seed=60))
     with pytest.raises(ValueError, match="G=2"):
