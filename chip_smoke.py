@@ -113,7 +113,8 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12,
                   "tf32x3": 495e12 / 3}
 # the tensor-core instructions each redesigned kernel's SASS must hold
 TENSOR_CORE_SASS = {"flash_attention": "HGMMA",
-                    "flash_attention_bwd": "HGMMA", "ssd": "HMMA"}
+                    "flash_attention_bwd": "HGMMA", "ssd": "HMMA",
+                    "ssd_bwd": "HMMA"}
 SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
 TOL = {"float32": (2e-5, 1e-4), "bfloat16": (3e-2, 3e-2)}   # atol, rtol
 # the backward kernels: f32 sums of up to G * S products in another order;
@@ -150,6 +151,13 @@ SSD_BWD_CASES = (("R=8,Q=256", 8, 256, True), ("R=1,Q=77", 1, 77, True),
                                            False))
 SSD_BWD_TOL = 1e-4
 GATED_BWD_SHAPE = (2048, 4096)  # mamba2-1.3b's training rows, d_inner
+# the times of the two backward kernels before their redesign on the
+# tensor cores and for bandwidth, at their main shapes (PERF.md section
+# 6, on an H100 80GB HBM3 at 700 W), printed beside this run's: a
+# reference, not a measurement of this run, so kept out of the records
+PREVIOUS_MS = {("ssd_chunk_bwd", "R=8,Q=256", "float32"): 1.8390,
+               ("gated_rmsnorm_bwd", "rows=2048,d=4096", "bfloat16"): 0.0624,
+               ("gated_rmsnorm_bwd", "rows=2048,d=4096", "float32"): 0.0792}
 # stencil2d, (H, W, K, dtype): SC's 4096^2 image (the main shape), bf16,
 # K=5, and a ragged image; f32 atol 1e-5 (the same products in the same
 # order, the kernel's contracted into FMAs)
@@ -450,6 +458,9 @@ def phase_kernels():
             lib += f" ({extra['library']}; {extra['library_ms_by_backend']})"
         if "max_abs_err_vs_f64" in extra:
             lib += f"  vs f64 {extra['max_abs_err_vs_f64']}"
+        if (name, shape, dtype) in PREVIOUS_MS:
+            lib += (f"  previous {PREVIOUS_MS[name, shape, dtype]:.4f} "
+                    f"(before the redesign)")
         print(f"  {name:16s} {shape:15s} {dtype:8s} err "
               f"{row['max_abs_err']:.3e} (atol {atol}, rtol {rtol}) "
               f"{'ok' if ok else 'FAIL'}  kernel {ms:.4f} ms  plain "
@@ -726,11 +737,10 @@ def phase_kernels():
                max_abs_err_vs_f64=f64)
 
     # the SSD backward on the same kind of inputs with random incoming
-    # gradients.  Its products are f32 FMAs on the CUDA cores, but the
-    # card does products of f32 accuracy at the 3xTF32 rate, as the
-    # forward does, so that rate bounds it; the f32 CUDA-core bound
-    # stands beside it.  Every output within SSD_BWD_TOL of its max
-    # |value|.  No one PyTorch call computes this function.
+    # gradients.  Its products are 3xTF32 on the tensor cores, as the
+    # forward's, so that rate bounds it; the f32 CUDA-core bound stands
+    # beside it.  Every output within SSD_BWD_TOL of its max |value|.  No
+    # one PyTorch call computes this function.
     for label, R, Q, shared in SSD_BWD_CASES:
         x = randn(R, H, Q, P)
         dt = F.softplus(randn(R, H, Q))

@@ -69,9 +69,27 @@
 // element recomputes s = silu(z) and the norm's input g = x s in f32,
 // rounded as the forward's prologue rounds them, takes (dg, dw) as above
 // at g, and writes dx = dg s and dz = dg x sig(z) (1 + z (1 - sig(z))),
-// each rounded once to the dtype.  At Mamba2-1.3b's d_inner (4096) a row
-// is too wide for a warp's registers (16 packs a lane in bf16), so its
-// rows take the block-per-row kernel, two packs a thread in bf16.
+// each rounded once to the dtype.  Bytes bound it: x, z, dy read, dx, dz
+// written, five row-sized streams.  At Mamba2-1.3b's d_inner (4096) a row
+// is too wide for a warp's registers (16 packs a lane in bf16), and a
+// block a row kept little in flight: the next row was read only after
+// two block-wide reductions of this one, each behind a barrier, at two
+// blocks an SM, and the gate's exp and divisions were taken twice an
+// element.  So, for aligned rows of up to 4 packs a thread,
+//  (3) gated_bwd_rows: a block of 256 threads a row, two blocks an SM,
+//      each walking its rows.  The next row's x, z and dy are copied by
+//      cp.async into the second of two shared-memory stages when a row
+//      starts, so that they are in flight through its whole work and
+//      hold no registers; each thread copies and reads only its own
+//      16-byte packs, so the stages need no barrier.  The gate is taken
+//      once an element (g, s and dz's factor kept in registers for the
+//      second pass).  Both row sums are warp shuffles and one
+//      shared-memory exchange behind one barrier, into two alternating
+//      buffers so that no second barrier guards them.  w and the dw sums
+//      stay in registers across the rows, and each block writes one row
+//      of partials for (2), as (1) does.
+// Narrower rows take (1), wider or unaligned ones the block-per-row
+// kernel below; the plain and residual modes do not reach (3).
 #include <stdint.h>
 
 #include "common.cuh"
@@ -484,6 +502,124 @@ __global__ void __launch_bounds__(kRowWarps * 32, 1)
   }
 }
 
+// The gated norm's backward at rows of up to NP 16-byte packs a thread
+// (kGate, aligned rows): see (3) in the header.  Each block walks rows
+// blockIdx.x, blockIdx.x + gridDim.x, ...; w and the block's dw sums stay
+// in registers across them.  Shared memory: two stages of a row's x, z
+// and dy (3 d elements of T each), written and read by the same thread,
+// so that they need no barrier.
+template <typename T, int VEC, int NP>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+    gated_bwd_rows(const T* __restrict__ x, const T* __restrict__ w,
+                   const T* __restrict__ dy, const T* __restrict__ z,
+                   T* __restrict__ dx, T* __restrict__ dz,
+                   float* __restrict__ partial, int rows, int d,
+                   float eps) {
+  using P = Pack<T, VEC>;
+  extern __shared__ __align__(16) unsigned char ring_bytes[];
+  P* ring = reinterpret_cast<P*>(ring_bytes);
+  // two buffers: row k's exchange is read before row k + 1's barrier, so
+  // row k + 2 may write it again with no barrier of its own
+  __shared__ float2 red[2][kBwdThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nvec = d / VEC;
+  const float inv_d = 1.f / (float)d;
+  P wp[NP];
+  float dw[NP][VEC];
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    const int i = threadIdx.x + k * kBwdThreads;
+    if (i < nvec) wp[k] = reinterpret_cast<const P*>(w)[i];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) dw[k][j] = 0.f;
+  }
+  // stage s holds x, z, dy at ring[(3 s + 0, 1, 2) nvec + i]
+  auto fetch = [&](int row, int s) {
+    if (row < rows) {
+      const size_t off = (size_t)row * d;
+#pragma unroll
+      for (int k = 0; k < NP; ++k) {
+        const int i = threadIdx.x + k * kBwdThreads;
+        if (i < nvec) {
+          cp_async16(ring + (3 * s) * nvec + i, x + off + (size_t)i * VEC);
+          cp_async16(ring + (3 * s + 1) * nvec + i,
+                     z + off + (size_t)i * VEC);
+          cp_async16(ring + (3 * s + 2) * nvec + i,
+                     dy + off + (size_t)i * VEC);
+        }
+      }
+    }
+    cp_async_commit();      // a group every call: cp_async_wait<1> counts them
+  };
+  fetch(blockIdx.x, 0);
+  int buf = 0, s = 0;
+  for (int row = blockIdx.x; row < rows; row += gridDim.x, s ^= 1) {
+    // the next row in flight through this one's work
+    fetch(row + gridDim.x, s ^ 1);
+    cp_async_wait<1>();            // this row's group has landed
+    const P* xs = ring + (3 * s) * nvec;
+    const P* zs = xs + nvec;
+    const P* ds = zs + nvec;
+    // the gate once an element: g = x s and dz's factor q, from x and z
+    float g[NP][VEC], sg[NP][VEC], q[NP][VEC];
+    float sxx = 0.f, sgx = 0.f;
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      const int i = threadIdx.x + k * kBwdThreads;
+      if (i < nvec) {
+        const P xp = xs[i], zp = zs[i], dp = ds[i];
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          g[k][j] = gate_in<T>(to_f32(xp.v[j]), to_f32(zp.v[j]), sg[k][j],
+                               q[k][j]);
+          sxx += g[k][j] * g[k][j];
+          sgx += to_f32(dp.v[j]) * to_f32(wp[k].v[j]) * g[k][j];
+        }
+      }
+    }
+    sxx = warp_sum(sxx);
+    sgx = warp_sum(sgx);
+    if (lane == 0) red[buf][warp] = make_float2(sxx, sgx);
+    __syncthreads();
+    float2 t = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int i = 0; i < kBwdThreads / 32; ++i) {
+      t.x += red[buf][i].x;
+      t.y += red[buf][i].y;
+    }
+    buf ^= 1;
+    const float r = rsqrtf(t.x * inv_d + eps);
+    const float c = r * r * r * t.y * inv_d;
+    const size_t off = (size_t)row * d;
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      const int i = threadIdx.x + k * kBwdThreads;
+      if (i < nvec) {
+        const P dp = ds[i];
+        P xo, zo;
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const float df = to_f32(dp.v[j]);
+          const float dg = r * df * to_f32(wp[k].v[j]) - g[k][j] * c;
+          xo.v[j] = from_f32<T>(dg * sg[k][j]);
+          zo.v[j] = from_f32<T>(dg * q[k][j]);
+          dw[k][j] += df * g[k][j] * r;
+        }
+        reinterpret_cast<P*>(dx + off)[i] = xo;
+        reinterpret_cast<P*>(dz + off)[i] = zo;
+      }
+    }
+  }
+  float* part = partial + (size_t)blockIdx.x * d;
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    const int i = threadIdx.x + k * kBwdThreads;
+    if (i < nvec)
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) part[i * VEC + j] = dw[k][j];
+  }
+}
+
 // dw[col] = the sum of the nblk partial rows at col: see (2) in the header.
 constexpr int kDwWarps = 32;
 
@@ -634,6 +770,21 @@ void launch_rows_np(int np, const T* x, const T* w, const T* dy, const T* o,
                             stream);
 }
 
+template <typename T, int VEC, int NP>
+cudaError_t launch_gated(const T* x, const T* w, const T* dy, const T* z,
+                         T* dx, T* dz, float* partial, int rows, int d,
+                         float eps, int nblk, size_t ring,
+                         cudaStream_t stream) {
+  auto kernel = gated_bwd_rows<T, VEC, NP>;
+  // above 48 KB a block's shared memory has to be opted into
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ring);
+  if (err != cudaSuccess) return err;
+  kernel<<<nblk, kBwdThreads, ring, stream>>>(x, w, dy, z, dx, dz, partial,
+                                              rows, d, eps);
+  return cudaGetLastError();
+}
+
 // The first launch of the backward (the rows, and a row of dw partials a
 // block) for one MODE; *nblk is cut to the blocks it ran.
 template <typename T, int MODE>
@@ -643,6 +794,25 @@ cudaError_t launch_bwd_rows(const T* x, const T* w, const T* dy, const T* o,
                             cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   const int np = (d / kVec + 31) / 32;        // packs a lane, a warp a row
+  const int bp = (d / kVec + kBwdThreads - 1) / kBwdThreads;   // a block a row
+  if (MODE == kGate && vec && np > 6 && bp <= 4) {
+    // two blocks an SM, each with two stages of a row in shared memory
+    int sms = 0;
+    cudaError_t err = sm_count(&sms);
+    if (err != cudaSuccess) return err;
+    *nblk = *nblk < 2 * sms ? *nblk : 2 * sms;
+    const size_t ring = 2 * 3 * (size_t)d * sizeof(T);
+    if (bp <= 1)
+      err = launch_gated<T, kVec, 1>(x, w, dy, o, dx, dz, partial, rows, d,
+                                     eps, *nblk, ring, stream);
+    else if (bp <= 2)
+      err = launch_gated<T, kVec, 2>(x, w, dy, o, dx, dz, partial, rows, d,
+                                     eps, *nblk, ring, stream);
+    else
+      err = launch_gated<T, kVec, 4>(x, w, dy, o, dx, dz, partial, rows, d,
+                                     eps, *nblk, ring, stream);
+    return err;
+  }
   if (vec && np <= 6) {
     // a warp a row: one block an SM, at most one per kRowWarps rows
     int sms = 0;

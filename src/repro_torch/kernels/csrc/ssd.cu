@@ -55,6 +55,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "tf32.cuh"
 
 namespace repro_torch {
 namespace {
@@ -83,26 +84,6 @@ __device__ __forceinline__ const float* base(const float* p,
                                              const long long* st, int r,
                                              int h) {
   return p + (long long)r * st[0] + (long long)h * st[1];
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Rows [row0, row0 + kTile) and columns [col0, col0 + cols) of a
@@ -149,81 +130,15 @@ __device__ __forceinline__ void stage_vec(float* dst, const float* src,
   }
 }
 
-// ---- 3xTF32 tensor-core products -------------------------------------------
-// An f32 a (as its bits) split into hi = a rounded to TF32 (half a TF32
-// ulp added, the 13 low bits dropped) and lo = a - hi, exact in f32.  lo
-// goes to the mma as it is: the tensor cores read the TF32 part of an f32
-// register and drop the 13 low bits, which costs lo a relative 2^-10 and
-// a no more than 2^-21.
-__device__ __forceinline__ void split_tf32(uint32_t a, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (a + 0x1000u) & 0xFFFFE000u;
-  lo = __float_as_uint(__uint_as_float(a) - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d = a * b, into a fresh accumulator (C = 0).
-__device__ __forceinline__ void mma_tf32_zero(float (&d)[4],
-                                              const uint32_t (&a)[4],
-                                              uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(0.f), "f"(0.f), "f"(0.f), "f"(0.f));
-}
-
-// Four 8 x 4 f32 tiles of shared memory (8 x 8 as b16) into registers:
-// lanes 8m..8m+7 give the row addresses of tile m, and lane 4g + t gets
-// element (g, t) of each tile: an m16n8k8 A fragment, or the B
-// fragments of two n-tiles, from rows whose k runs along the row.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p)))
-      : "memory");
-}
-
-// A 16 x 8 operand in the m16n8k8 A fragment order ((g, t), (g+8, t),
-// (g, t+4), (g+8, t+4) for lane 4g + t), split for 3xTF32.
-struct FragA {
-  uint32_t hi[4], lo[4];
-  __device__ __forceinline__ void set(const uint32_t (&a)[4]) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) split_tf32(a[e], hi[e], lo[e]);
-  }
-};
-
-// d += a * b for an 8 x 8 B operand given as (k = t, n = g) and
-// (k = t + 4, n = g), as f32 bits.  The three products (the two small
-// cross terms first, then hi * hi) go into a fresh accumulator that is
-// added to d in f32: the tensor cores align and truncate the addends of
-// an mma to the largest one, so summing into a large running d inside the
-// mma would lose more.
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const FragA& a,
-                                           uint32_t b0, uint32_t b1) {
+// d += a * b for a B operand given as f32 bits (k = t, n = g) and
+// (k = t + 4, n = g): split here, as it is loaded (tf32.cuh).
+__device__ __forceinline__ void mma_3xtf32_split(float (&d)[4], const Frag& a,
+                                                 uint32_t b0, uint32_t b1) {
   uint32_t bh0, bl0, bh1, bl1;
   split_tf32(b0, bh0, bl0);
   split_tf32(b1, bh1, bl1);
-  float t[4];
-  mma_tf32_zero(t, a.lo, bh0, bh1);
-  mma_tf32(t, a.hi, bl0, bl1);
-  mma_tf32(t, a.hi, bh0, bh1);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) d[e] += t[e];
+  mma_3xtf32(d, a, bh0, bh1, bl0, bl1);
 }
-
-__device__ __forceinline__ uint32_t bits(float v) { return __float_as_uint(v); }
 
 // Shared-memory layout of a y block, in floats.
 struct YSmem {
@@ -328,14 +243,14 @@ __device__ void y_tile(const Args& a, int it, float* smem) {
     if (!(diag && cn > rm + 15)) {   // else wholly above the diagonal
       for (int k0 = 0; k0 < N8; k0 += 8) {
         uint32_t r[4];
-        FragA fa;
+        Frag fa;
         ldsm_x4(r, ca + k0);
         fa.set(r);
 #pragma unroll
         for (int n = 0; n < 4; n += 2) {
           ldsm_x4(r, bb + 8 * n * L.ldc + k0);   // n-tiles n and n + 1
-          mma_3xtf32(sc[n], fa, r[0], r[1]);
-          mma_3xtf32(sc[n + 1], fa, r[2], r[3]);
+          mma_3xtf32_split(sc[n], fa, r[0], r[1]);
+          mma_3xtf32_split(sc[n + 1], fa, r[2], r[3]);
         }
       }
     }
@@ -366,12 +281,12 @@ __device__ void y_tile(const Args& a, int it, float* smem) {
     const float* xb = Xs + t * L.ldx + cp + g;
     for (int k0 = 0; k0 < kend; k0 += 8) {
       uint32_t r[4];
-      FragA fa;
+      Frag fa;
       ldsm_x4(r, aa + k0);
       fa.set(r);
 #pragma unroll
       for (int n = 0; n < NT; ++n)
-        mma_3xtf32(acc[n], fa, bits(xb[k0 * L.ldx + 8 * n]),
+        mma_3xtf32_split(acc[n], fa, bits(xb[k0 * L.ldx + 8 * n]),
                    bits(xb[(k0 + 4) * L.ldx + 8 * n]));
     }
     __syncthreads();                 // x_j and att free
@@ -464,11 +379,11 @@ __device__ void state_tile(const Args& a, int nt, float* smem) {
       const float* b1 = Bs + (k0 + t + 4) * kLdw + rm + g;
       const uint32_t r[4] = {bits(b0[0] * w0), bits(b0[8] * w0),
                              bits(b1[0] * w1), bits(b1[8] * w1)};
-      FragA fa;
+      Frag fa;
       fa.set(r);
 #pragma unroll
       for (int n = 0; n < NT; ++n)
-        mma_3xtf32(acc[n], fa, bits(xb[k0 * L.ldx + 8 * n]),
+        mma_3xtf32_split(acc[n], fa, bits(xb[k0 * L.ldx + 8 * n]),
                    bits(xb[(k0 + 4) * L.ldx + 8 * n]));
     }
     __syncthreads();                 // this stage is free for jt + 2

@@ -15,10 +15,11 @@ anything else; the public wrapper with the launch counter is
 
 Its backward, ``ssd_chunk_bwd``, launches ``csrc/ssd_bwd.cu``: two
 passes over the (64-row i-tile, j-tile) pairs at or below the diagonal,
-one summing the column-side gradients (dx, dB, ddt) and one the row-side
-ones (dC), each recomputing the scores, f32 FMAs on the CUDA cores, no
-atomics (the design note is at the top of that source).  Its public
-wrapper is ``ops.ssd_chunk_bwd``.
+every product 3xTF32 ``mma.sync``.  The first sums the column-side
+gradients (dx, dB, ddt) and leaves each pair's dG in a workspace; the
+second sums the row-side one, dC, from it.  No atomics (the design note
+is at the top of that source).  Its public wrapper is
+``ops.ssd_chunk_bwd``.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from . import build
 
 MAX_P, MAX_N = 128, 256              # accumulator and shared-memory limits
 MAX_P_BWD, MAX_N_BWD = 64, 128       # the backward's register accumulators
+BWD_TILE = 64                        # rows of the backward's i- and j-tiles
 
 _SIGNATURES = {
     "ssd_chunk_fwd": (
@@ -38,7 +40,7 @@ _SIGNATURES = {
 }
 _BWD_SIGNATURES = {
     "ssd_chunk_bwd": (
-        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
+        [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p], ctypes.c_int),
 }
 
@@ -127,12 +129,18 @@ def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, cs: torch.Tensor,
     dB, dC = (torch.empty((R, H, Q, N), **f32) for _ in range(2))
     if R == 0 or H == 0:
         return dx, ddt, dcs, dB, dC
+    # scratch: dG of each tile pair at or below the diagonal, and the sums
+    # of Pm over each j-tile's rows
+    tiles = -(-Q // BWD_TILE)
+    gws = torch.empty((R * H * tiles * (tiles + 1) // 2, BWD_TILE,
+                       BWD_TILE), **f32)
+    pws = torch.empty((R, H, tiles, Q), **f32)
     strides = (ctypes.c_longlong * 15)(*[
         st for t in tensors for st in t.stride()[:3]])
     lib = build.load("ssd_bwd", _BWD_SIGNATURES)
     err = lib.ssd_chunk_bwd(
         *(t.data_ptr() for t in (x, dt, cs, Bm, Cm, dy, dS, dx, ddt, dcs,
-                                 dB, dC, wu)),
+                                 dB, dC, wu, gws, pws)),
         R, H, Q, P, N, strides,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "ssd_chunk_bwd launch")

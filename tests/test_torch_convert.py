@@ -10,6 +10,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_mkl import init_vml  # noqa: E402
+
+init_vml()      # before any test: tests/_torch_mkl.py says why
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import ml_dtypes  # noqa: E402

@@ -211,6 +211,11 @@ def _ssd_bwd_inputs(R, H, Q, P, N, shared, cuda, seed=20):
     (8, 64, 256, 64, 128, True),    # mamba2-1.3b's training shape
     (1, 64, 77, 64, 128, True),     # a short chunk
     (1, 64, 1, 64, 128, True),      # one token
+    (2, 64, 256, 64, 128, True),    # chip_smoke.py's SSD_BWD_CASES, B/C
+    (8, 64, 256, 64, 128, False),   # shared and per head
+    (1, 64, 77, 64, 128, False),
+    (1, 64, 1, 64, 128, False),
+    (2, 64, 256, 64, 128, False),
     (2, 3, 200, 16, 8, False),      # ragged over 4 tiles, per-head B/C
     (1, 2, 130, 5, 7, True),        # P and N off every granule
     (1, 4, 64, 64, 128, False)])    # one whole tile
@@ -228,8 +233,12 @@ def test_ssd_bwd_kernel_matches_plain(cuda, R, H, Q, P, N, shared):
 
 
 @pytest.mark.cuda
-def test_ssd_bwd_kernel_is_deterministic(cuda):
-    args = _ssd_bwd_inputs(2, 64, 256, 64, 128, True, cuda, seed=30)
+@pytest.mark.parametrize("R,Q,shared", [(2, 256, True), (8, 256, True),
+                                        (1, 77, False)])
+def test_ssd_bwd_kernel_is_deterministic(cuda, R, Q, shared):
+    """Two launches on the same inputs give the same bits (one writer an
+    output, sums in a fixed order, no atomics)."""
+    args = _ssd_bwd_inputs(R, 64, Q, 64, 128, shared, cuda, seed=30)
     a, b = ops.ssd_chunk_bwd(*args), ops.ssd_chunk_bwd(*args)
     assert all(torch.equal(u, v) for u, v in zip(a, b))
 
@@ -400,10 +409,14 @@ def test_gated_rmsnorm_kernel_matches_plain(cuda, dtype, rows, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("rows,d", [(2048, 4096), (1, 4096), (995, 4096),
-                                    (37, 1536), (3, 100), (300, 64)])
+                                    (37, 1536), (3, 100), (300, 64),
+                                    (333, 4000), (5, 2056), (3, 8192),
+                                    (2, 8200)])
 def test_gated_rmsnorm_bwd_kernel_matches_plain(cuda, dtype, rows, d):
-    """mamba2-1.3b's training rows (block a row: d = 4096), rows a warp's
-    registers hold (d = 1536, 64) and an odd width (the scalar path)."""
+    """mamba2-1.3b's training rows (the gate's own kernel: d = 4096), the
+    same kernel at ragged widths (4000, 2056) and at its widest (8192 in
+    bf16), rows a warp's registers hold (d = 1536, 64), an odd width (the
+    scalar path) and one wider than the gate kernel takes (8200)."""
     dt = getattr(torch, dtype)
     x, z = _rand((rows, d), 46, dt, cuda), 2 * _rand((rows, d), 47, dt, cuda)
     w = (1 + 0.1 * _rand((d,), 48, torch.float32, cuda)).to(dt)

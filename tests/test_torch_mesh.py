@@ -13,6 +13,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_mkl import init_vml  # noqa: E402
+
+init_vml()      # before any test: tests/_torch_mkl.py says why
 
 from conftest import run_with_devices  # noqa: E402
 from repro_torch.core import hlo  # noqa: E402

@@ -21,6 +21,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_mkl import init_vml  # noqa: E402
+
+init_vml()      # before any test: tests/_torch_mkl.py says why
 
 from conftest import REPO, run_with_devices  # noqa: E402
 from repro.patterns import WORKLOADS as JWORKLOADS  # noqa: E402

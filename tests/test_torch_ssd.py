@@ -6,10 +6,19 @@ is tested on the card by tests/test_torch_cuda.py.
 Tolerances are tests/test_kernels.py's: atol/rtol 1e-4 for the
 intra-chunk kernel, 1e-3 for the whole chunked SSD (exponentials of
 cumulative sums, taken in another order)."""
+import os
+import pathlib
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_mkl import init_vml  # noqa: E402
+
+init_vml()      # before any test: tests/_torch_mkl.py says why
+
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
@@ -95,6 +104,41 @@ def test_ssd_chunk_wrapper_runs_plain_version_on_cpu():
     want = ref.ssd_chunk_ref(x, dt, cs, Bm.contiguous(), Cm.contiguous())
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert ops.launch_counts() == before       # no kernel was launched
+
+
+_TESTS = pathlib.Path(__file__).resolve().parent
+
+
+def test_ssd_chunk_ref_passes_in_fresh_processes():
+    """The parametrisation that failed when it held its process's first
+    VML call (tests/_torch_mkl.py), in 3 fresh pytest processes at once:
+    all three pass."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join(
+                   [str(_TESTS.parent / "src"), os.environ.get("PYTHONPATH",
+                                                               "")]))
+    case = (f"{_TESTS / 'test_torch_ssd.py'}::"
+            "test_ssd_chunk_ref_matches_jax[2-2-64-32-16]")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+         "-p", "no:xdist", case], cwd=_TESTS.parent, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for _ in range(3)]
+    outs = [p.communicate(timeout=120)[0] for p in procs]
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0 and "1 passed" in out, out[-3000:]
+
+
+def test_port_tests_make_the_first_vml_call_on_one_thread():
+    """Every CPU test file of the port calls init_vml right after it
+    imports torch, before anything else of torch runs."""
+    for path in sorted(_TESTS.glob("test_torch_*.py")):
+        if path.name == "test_torch_cuda.py":      # card only
+            continue
+        lines = path.read_text().splitlines()
+        at = lines.index('torch = pytest.importorskip("torch")')
+        assert lines[at + 1] == "from _torch_mkl import init_vml  # noqa: E402"
+        assert lines[at + 3].startswith("init_vml()"), path.name
 
 
 def test_ssd_launcher_refuses_what_the_kernel_does_not_take():

@@ -18,7 +18,13 @@ the card (tests/test_torch_cuda.py, chip_smoke.py phase 2):
 * the SSD chunk with every product in 3xTF32 (a = hi + lo, both TF32;
   a b = lo_a hi_b + hi_a lo_b + hi_a hi_b, summed in f32) holds the SSD
   kernel's 1e-4 at mamba2-1.3b's head width, while a single TF32 product
-  misses it: that is why the kernel splits.
+  misses it: that is why the kernel splits;
+* its backward (csrc/ssd_bwd.cu), each operand split once as it is
+  staged, its products in the kernel's tile and k-step order (the column
+  pass's two halves of i summed apart and added at the end, dC over the
+  j-tiles from the dG workspace), holds 1e-4 of each output's max |value|
+  against ``jax.vjp`` of the reference; single TF32 misses it; both
+  launches' work splits cover every causal tile pair once.
 
 TF32 is emulated by zeroing the 13 low mantissa bits of an f32 through
 an int32 view (the tensor cores read an f32 register that way); the
@@ -31,6 +37,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_mkl import init_vml  # noqa: E402
+
+init_vml()      # before any test: tests/_torch_mkl.py says why
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -86,6 +96,116 @@ def ssd_chunk_emulated(mm, x, dt, cs, Bm, Cm):
     w = torch.exp(cs[..., -1:] - cs) * dt
     s = mm((Bm * w[..., None]).transpose(-1, -2), x)       # (R,H,N,P)
     return y, s
+
+
+def split_tf32_rn(a: torch.Tensor):
+    """The backward kernel's split at staging: hi = a rounded to TF32
+    (half a TF32 ulp added, the 13 low bits dropped), lo = a - hi in f32;
+    the mma reads lo's TF32 part."""
+    hi = ((a.contiguous().view(torch.int32) + 4096) & -8192).view(
+        torch.float32)
+    return hi, tf32(a - hi)
+
+
+def mma_steps(a: torch.Tensor, b: torch.Tensor, three: bool,
+              acc: torch.Tensor = None) -> torch.Tensor:
+    """acc + a @ b (a (..., M, K), b (..., K, N), K a multiple of 8) as
+    mma.sync.m16n8k8 takes it: k-steps of 8 in order, each step's product
+    a fresh f32 accumulator added to the running sum.  three: 3xTF32 from
+    split operands (lo_a hi_b + hi_a lo_b + hi_a hi_b); else one TF32
+    product."""
+    out = torch.zeros(*a.shape[:-1], b.shape[-1]) if acc is None else acc
+    for k0 in range(0, a.shape[-1], 8):
+        ak, bk = a[..., k0:k0 + 8], b[..., k0:k0 + 8, :]
+        if three:
+            ah, al = split_tf32_rn(ak)
+            bh, bl = split_tf32_rn(bk)
+            out = out + (al @ bh + ah @ bl + ah @ bh)
+        else:
+            out = out + tf32(ak) @ tf32(bk)
+    return out
+
+
+BWD_TILE = 64
+
+
+def ssd_chunk_bwd_emulated(three, x, dt, cs, Bm, Cm, dy, dS):
+    """ssd_chunk_bwd_ref's function as csrc/ssd_bwd.cu takes it: rows
+    padded with zeros to whole 64-row tiles; pass (1) per j-tile, the
+    state side, then the i-tiles at and below the diagonal, G = B_j C_i^T
+    and dA = x_j dy_i^T, dx_j += att^T dy_i and dB_j += dG^T C_i over the
+    i of each half (columns 0-31 and 32-63 of a tile) apart, the halves
+    added at the end; pass (2) dC_i over the j-tiles from dG.  The sums
+    for ddt and dcs in f32."""
+    R, H, Q, P = x.shape
+    N = Bm.shape[-1]
+    T = BWD_TILE
+    nt = -(-Q // T)
+    Qp = nt * T
+    pad = (lambda t: torch.nn.functional.pad(t, (0, 0, 0, Qp - Q)))
+    xp, dyp, Bp, Cp = pad(x), pad(dy), pad(Bm), pad(Cm)
+    dtp, csp = (torch.nn.functional.pad(t, (0, Qp - Q)) for t in (dt, cs))
+    rows = torch.arange(Qp)
+    in_q = rows < Q
+    e = torch.where(in_q, torch.exp(cs[..., -1:] - csp), 0.0)
+    w = e * dtp
+    dx, dB, dC = (torch.zeros(R, H, Qp, n) for n in (P, N, N))
+    ddt, dcs, wu = (torch.zeros(R, H, Qp) for _ in range(3))
+    dG = {}
+    for jt in range(nt):
+        J = slice(jt * T, jt * T + T)
+        wj = w[..., J, None]
+        xds = mma_steps(xp[..., J, :], dS.transpose(-1, -2), three)
+        bds = mma_steps(Bp[..., J, :], dS, three)
+        u = (Bp[..., J, :] * xds).sum(-1)
+        wu[..., J] = w[..., J] * u
+        half_dx = [torch.zeros(R, H, T, P), torch.zeros(R, H, T, P)]
+        half_db = [torch.zeros(R, H, T, N), torch.zeros(R, H, T, N)]
+        for h in range(2):
+            half_db[h][..., 64 * h:64 * h + 64] = (wj * xds)[
+                ..., 64 * h:64 * h + 64]
+            half_dx[h][..., 32 * h:32 * h + 32] = (wj * bds)[
+                ..., 32 * h:32 * h + 32]
+        ddt_j = e[..., J] * u
+        dcs_j = -torch.where(rows[J] != Q - 1, wu[..., J], 0.0)
+        for it in range(jt, nt):
+            I = slice(it * T, it * T + T)
+            G = mma_steps(Bp[..., J, :], Cp[..., I, :].transpose(-1, -2),
+                          three)                              # (j, i)
+            dA = mma_steps(xp[..., J, :], dyp[..., I, :].transpose(-1, -2),
+                           three)
+            keep = (rows[I][None, :] >= rows[J][:, None]) & in_q[I][None, :]
+            lm = torch.where(keep, torch.exp(
+                csp[..., None, I] - csp[..., J, None]), 0.0)
+            ld = lm * dtp[..., J, None]
+            att, dg = G * ld, dA * ld
+            off = rows[I][None, :] != rows[J][:, None]
+            pm = torch.where(off, dA * att, 0.0)
+            ddt_j = ddt_j + (dA * G * lm).sum(-1)
+            dcs_j = dcs_j - pm.sum(-1)
+            dcs[..., I] += pm.sum(-2)
+            for h in range(2):
+                cols = slice(32 * h, 32 * h + 32)
+                half_dx[h] = mma_steps(att[..., cols], dyp[..., I, :][
+                    ..., cols, :], three, half_dx[h])
+                half_db[h] = mma_steps(dg[..., cols], Cp[..., I, :][
+                    ..., cols, :], three, half_db[h])
+            dG[jt, it] = dg
+        dx[..., J, :] = half_dx[0] + half_dx[1]
+        dB[..., J, :] = half_db[0] + half_db[1]
+        ddt[..., J] = ddt_j
+        dcs[..., J] += dcs_j
+    for it in range(nt):
+        I = slice(it * T, it * T + T)
+        acc = torch.zeros(R, H, T, N)
+        for jt in range(it + 1):
+            J = slice(jt * T, jt * T + T)
+            acc = mma_steps(dG[jt, it].transpose(-1, -2), Bp[..., J, :],
+                            three, acc)
+        dC[..., I, :] = acc
+    dcs[..., Q - 1] += wu[..., :Q - 1].sum(-1)
+    return (dx[..., :Q, :], ddt[..., :Q], dcs[..., :Q], dB[..., :Q, :],
+            dC[..., :Q, :])
 
 
 def flash_bf16_p(q, k, v, causal=True):
@@ -310,6 +430,104 @@ def test_ssd_chunk_in_single_tf32_misses_the_kernel_tolerance():
     err1 = np.abs(y1.numpy() - np.asarray(want_y)).max()
     err3 = np.abs(y3.numpy() - np.asarray(want_y)).max()
     assert err1 > 100 * err3
+
+
+# ---------------------------------------------------------------------------
+# the SSD chunk's backward in 3xTF32, split at staging, and its work split
+# ---------------------------------------------------------------------------
+
+SSD_BWD_TOL = 1e-4            # of each output's max |value|: chip_smoke.py's
+
+
+def _ssd_bwd_case(R, H, Q, P, N, seed):
+    """Forward inputs as tests/test_kernels.py draws them, incoming dy and
+    dS; the emulated kernel's gradients and jax.vjp's of the reference."""
+    args = _ssd_inputs(R, H, Q, P, N, seed)
+    dy, dS = _rand((R, H, Q, P), seed + 5), _rand((R, H, N, P), seed + 6)
+    _, vjp = jax.vjp(jref.ssd_chunk_ref, *(jnp.asarray(a) for a in args))
+    want = [np.array(g) for g in vjp((jnp.asarray(dy), jnp.asarray(dS)))]
+    t_args = [torch.from_numpy(a) for a in (*args, dy, dS)]
+    # The reference's own dcs is NaN wherever its decay overflows above
+    # the diagonal (exp(cs_i - cs_j) past f32 times a masked 0: ROADMAP
+    # section 3's caveat; at Q = 256 every row).  There the f64 closed
+    # form stands in, ref.ssd_chunk_bwd_ref, held to jax.vjp where both
+    # are finite by tests/test_torch_grad.py.
+    f64 = tref.ssd_chunk_bwd_ref(*(t.double() for t in t_args))
+    for w, alt in zip(want, f64):
+        bad = ~np.isfinite(w)
+        w[bad] = alt.numpy()[bad]
+    return t_args, want
+
+
+def _err_over_max(got, want):
+    """max |got - want| / max |want| of each output, all finite."""
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    return [float(np.abs(g.numpy() - w).max() / np.abs(w).max())
+            for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("R,H,Q", [(1, 2, 256), (2, 1, 77)])
+def test_ssd_bwd_in_3xtf32_split_at_staging_holds_the_gate(R, H, Q):
+    """mamba2-1.3b's heads (P=64, N=128): a few (chunk, head) tiles of a
+    whole chunk (Q=256, four 64-row tiles, ten pairs) and of a short one
+    (Q=77): every output within 1e-4 of its max |value| of jax.vjp."""
+    t_args, want = _ssd_bwd_case(R, H, Q, 64, 128, seed=Q + R)
+    got = ssd_chunk_bwd_emulated(True, *t_args)
+    errs = _err_over_max(got, want)
+    assert max(errs) <= SSD_BWD_TOL, errs
+
+
+def test_ssd_bwd_in_single_tf32_misses_the_gate():
+    """The same design with one TF32 product per f32 one: far outside
+    1e-4, while 3xTF32 is well inside it."""
+    t_args, want = _ssd_bwd_case(1, 2, 256, 64, 128, seed=257)
+    errs1 = _err_over_max(ssd_chunk_bwd_emulated(False, *t_args), want)
+    errs3 = _err_over_max(ssd_chunk_bwd_emulated(True, *t_args), want)
+    assert max(errs1) > SSD_BWD_TOL
+    assert max(errs3) <= SSD_BWD_TOL
+    assert max(errs1) > 20 * max(errs3)
+
+
+def ssd_bwd_work(R, H, Q):
+    """The SSD backward's two launches from their index math
+    (csrc/ssd_bwd.cu): per block, in launch order, the (r, h, j-tile,
+    i-tile) pairs it takes, and for pass (1) the workspace slot it writes
+    each pair's dG to (pass (2) reads the same slots)."""
+    T = -(-Q // BWD_TILE)
+    RH = R * H
+    cols, rows = [], []
+    for b in range(T * RH):                 # ssd_bwd_cols
+        jt, rh = divmod(b, RH)
+        cols.append([(rh, jt, it, it * (it + 1) // 2 + jt)
+                     for it in range(jt, T)])
+    for b in range(T * RH):                 # ssd_bwd_rows
+        k, rh = divmod(b, RH)
+        it = T - 1 - k
+        rows.append([(rh, jt, it, it * (it + 1) // 2 + jt)
+                     for jt in range(it + 1)])
+    return cols, rows
+
+
+@pytest.mark.parametrize("R,H,Q", [(8, 64, 256), (1, 4, 77), (1, 3, 1),
+                                   (2, 5, 200)])
+def test_ssd_bwd_work_covers_every_causal_tile_pair_once(R, H, Q):
+    """Each launch takes every (r, h, j-tile, i-tile) pair at or below the
+    diagonal (i-tile >= j-tile) exactly once; each pair has its own workspace slot, the same in
+    both launches; blocks with more pairs launch first."""
+    T = -(-Q // BWD_TILE)
+    pairs = {(rh, jt, it) for rh in range(R * H) for jt in range(T)
+             for it in range(jt, T)}
+    for blocks in ssd_bwd_work(R, H, Q):
+        seen = collections.Counter(p[:3] for blk in blocks for p in blk)
+        assert set(seen.values()) == {1} and set(seen) == pairs
+        slots = {p[:3]: p[3] for blk in blocks for p in blk}
+        assert sorted(set((rh, s) for (rh, _, _), s in slots.items())) == \
+            [(rh, s) for rh in range(R * H) for s in range(T * (T + 1) // 2)]
+        work = [len(blk) for blk in blocks]
+        assert work == sorted(work, reverse=True)
+    cols, rows = ssd_bwd_work(R, H, Q)
+    assert ({p for blk in cols for p in blk}
+            == {p for blk in rows for p in blk})
 
 
 # ---------------------------------------------------------------------------

@@ -9,13 +9,21 @@ Calls, at the shapes of a qwen2-1.5b training step on the card:
   beside it autograd's backward of ``F.rms_norm`` (after the eager add
   for the residual form) on the same inputs;
 
+and at the shapes of a mamba2-1.3b training step:
+
+* ``ssd_chunk_bwd`` at R=8, H=64, Q=256, P=64, N=128, B and C shared by
+  the heads;
+* ``gated_rmsnorm_bwd`` at 2048 x 4096, bf16 and f32;
+
 each ``--reps`` times under torch.profiler, and prints per case the
 device ms per call of every kernel it launched and their sum.  ``--src``
 names the ``src`` directory of the tree to import ``repro_torch`` from,
 so the same cases can be taken of two trees (this checkout and its
 parent unpacked with ``git archive``) in one run on one card:
 
-    python tools/torch_bwd_profile.py [--src DIR] [--reps 20]
+    python tools/torch_bwd_profile.py [--src DIR] [--reps 20] [--only S]
+
+``--only`` keeps the cases whose name contains S.
 
 Needs a CUDA device; the last line is one JSON object with every case.
 """
@@ -47,6 +55,7 @@ def main() -> int:
     ap.add_argument("--src", default=str(
         pathlib.Path(__file__).resolve().parents[1] / "src"))
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--only", default="")
     args = ap.parse_args()
     sys.path.insert(0, args.src)
     import torch
@@ -63,7 +72,10 @@ def main() -> int:
     out = {"src": args.src, "device": torch.cuda.get_device_name(0),
            "cases": []}
 
-    def show(case, times):
+    def show(case, fn):
+        if args.only not in case:
+            return
+        times = launch_ms(fn, args.reps)
         row = {"case": case, "launch_ms": times,
                "total_ms": sum(times.values())}
         out["cases"].append(row)
@@ -77,8 +89,8 @@ def main() -> int:
         q, do = randn(B, S, H, hd, dt=dt), randn(B, S, H, hd, dt=dt)
         k, v = randn(B, S, K, hd, dt=dt), randn(B, S, K, hd, dt=dt)
         o, lse = fa.flash_attention(q, k, v, causal=True, with_lse=True)
-        show(f"flash_attention_bwd B={B},S={S},hd={hd} {dtype}", launch_ms(
-            lambda: fa.flash_attention_bwd(q, k, v, o, lse, do), args.reps))
+        show(f"flash_attention_bwd B={B},S={S},hd={hd} {dtype}",
+             lambda: fa.flash_attention_bwd(q, k, v, o, lse, do))
 
     rows, d = 2048, 1536
     for dtype in ("bfloat16", "float32"):
@@ -89,17 +101,38 @@ def main() -> int:
         h = xg + rg
         y_plain = F.rms_norm(xg, (d,), wg, 1e-6)
         y_resid = F.rms_norm(h, (d,), wg, 1e-6)
-        show(f"rmsnorm_bwd rows={rows},d={d} {dtype}", launch_ms(
-            lambda: rms.rmsnorm_bwd(x, w, dy, 1e-6), args.reps))
-        show(f"autograd of F.rms_norm rows={rows},d={d} {dtype}", launch_ms(
-            lambda: torch.autograd.grad(y_plain, (xg, wg), dy,
-                                        retain_graph=True), args.reps))
-        show(f"add_rmsnorm_bwd rows={rows},d={d} {dtype}", launch_ms(
-            lambda: rms.rmsnorm_bwd(x, w, dy, 1e-6, dh=dh), args.reps))
+        show(f"rmsnorm_bwd rows={rows},d={d} {dtype}",
+             lambda: rms.rmsnorm_bwd(x, w, dy, 1e-6))
+        show(f"autograd of F.rms_norm rows={rows},d={d} {dtype}",
+             lambda: torch.autograd.grad(y_plain, (xg, wg), dy,
+                                         retain_graph=True))
+        show(f"add_rmsnorm_bwd rows={rows},d={d} {dtype}",
+             lambda: rms.rmsnorm_bwd(x, w, dy, 1e-6, dh=dh))
         show(f"autograd of x + r; F.rms_norm rows={rows},d={d} {dtype}",
-             launch_ms(lambda: torch.autograd.grad(
-                 (h, y_resid), (xg, rg, wg), (dh, dy), retain_graph=True),
-                 args.reps))
+             lambda: torch.autograd.grad(
+                 (h, y_resid), (xg, rg, wg), (dh, dy), retain_graph=True))
+
+    from repro_torch.kernels import ssd
+    R, H, Q, P, N = 8, 64, 256, 64, 128
+    x, dy = randn(R, H, Q, P, dt=torch.float32), randn(R, H, Q, P,
+                                                      dt=torch.float32)
+    dt = F.softplus(randn(R, H, Q, dt=torch.float32))
+    cs = torch.cumsum(dt * -torch.exp(randn(H, dt=torch.float32))[:, None],
+                      dim=-1)
+    Bm, Cm = (randn(R, 1, Q, N, dt=torch.float32).expand(R, H, Q, N)
+              for _ in range(2))
+    dS = randn(R, H, N, P, dt=torch.float32)
+    show(f"ssd_chunk_bwd R={R},H={H},Q={Q},P={P},N={N} float32",
+         lambda: ssd.ssd_chunk_bwd(x, dt, cs, Bm, Cm, dy, dS))
+
+    rows, d = 2048, 4096
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        x, dy = randn(rows, d, dt=dt), randn(rows, d, dt=dt)
+        z = (2 * randn(rows, d, dt=torch.float32)).to(dt)
+        w = (1 + 0.1 * randn(d, dt=torch.float32)).to(dt)
+        show(f"gated_rmsnorm_bwd rows={rows},d={d} {dtype}",
+             lambda: rms.gated_rmsnorm_bwd(x, z, w, dy, 1e-6))
     print(json.dumps(out))
     return 0
 
