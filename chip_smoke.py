@@ -81,14 +81,31 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ms, tokens/s, device busy, idle share and peak memory, (d) ``loop.run``
    for 6 steps with a checkpoint at 3 and a failure before step 5, the
    replayed losses equal to the first ones bit for bit, (e) one train step traced on meta, one op
-   per kernel call, SIMULATED beside (c)'s measured step.
+   per kernel call, SIMULATED beside (c)'s measured step;
+11. sim   — the simulator's parallel engine on the card's host, in two
+   child interpreters that create no CUDA context (the procs executor
+   forks): phase 9(b)'s train step and phase 7's 14 MGMark programs
+   traced on meta, then (a) each trace simulated on H100 datasheet
+   ChipSpecs under serial and under batch, lookahead and bounded x the
+   threads and procs executors, MGMark's 4-chip traces on the analytic
+   and the event fabric, every summary equal to serial's on the same
+   fabric, with the wall seconds of each scheduler x executor and the
+   host's CPU count, and the same for the diverged ring of
+   ``benchmarks/engine_scalability.py`` on the port's engine (32 nodes x
+   1200 ticks, 4 workers); (b) the serving simulator: qwen2-1.5b at full width,
+   one tenant on one H100 with phase 3's traffic, and a two-failure
+   failover scenario, under serial and bounded x both executors on both
+   fabrics, summaries equal to serial's, the SIMULATED tokens/s beside
+   phase 3's measured ones; (c) ``tools/torch_sweep.py``'s quick grid
+   inline and on 2 workers: equal rows, the rerun's plans all from the
+   plan cache.
 
 Before the last line it prints ``{"kernels": [...]}`` and the card's name
 and power limit from nvidia-smi; the last line is ``{"ok": true,
 "device": {...}}``.  Every case, the serving and training numbers and
-the MGMark rows and simulated numbers and phase 9's ``loop``,
-``analysis`` and ``quickstart``
-numbers also go to ``build/chip_smoke.json``.  Without a CUDA
+the MGMark rows and simulated numbers, phase 9's ``loop``,
+``analysis`` and ``quickstart`` numbers and phase 11's ``sim`` numbers
+also go to ``build/chip_smoke.json``.  Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -1865,6 +1882,354 @@ def phase_mamba():
             train_launches, loop_launches)
 
 
+# phase 11: the simulator's parallel engine on the card's host.  It runs
+# in two child interpreters that never create a CUDA context: the procs
+# executor forks its shard workers, and a process that holds a CUDA
+# context and torch's threads must not fork.  The first traces on meta,
+# the second simulates; either's non-zero exit fails the run.
+SIM_SCHEDULERS = ("batch", "lookahead", "bounded")
+SIM_EXECUTORS = ("threads", "procs")
+SIM_SERVE_SCHEDULER = "bounded"     # (b): serial and this one x both
+SIM_CHILD_TIMEOUT_S = 420
+SIM_DEVICE_LIMIT = 8                # phase 7's (all 4 MGMark chips)
+# (a) also: the diverged ring of benchmarks/engine_scalability.py, whose
+# BENCH_engine.json (a CPU host) has lookahead at 4 workers taking 0.73
+# of serial's wall time: JitterNodes, a 4 ns link to the next, best of
+# SIM_RING_REPEAT
+SIM_RING_NODES, SIM_RING_TICKS, SIM_RING_WORKERS, SIM_RING_REPEAT = \
+    32, 1200, 4, 3
+# (b) phase 3's traffic: one tenant on one H100, 4 slots, prompts of
+# 64-1000 tokens, 32 new tokens each; 16 Poisson arrivals (1000 a second
+# over 16 ms; seed 5 gives 16), as phase 3 serves 16 requests
+SIM_SERVE_TRAFFIC = dict(arrival="poisson", rate_rps=1000.0,
+                         duration_s=0.016, seed=5, tenants=1, slots=4,
+                         prompt_range=(64, 1000), decode_range=(32, 32))
+# a failover scenario as tests/test_serve_failover.py builds one: one
+# tenant on a 2x2 pod, a second chip lost while the first recovers
+SIM_FAILOVER = dict(rate_rps=800.0, duration_s=0.006, seed=3, tenants=1)
+SIM_FAILOVER_FAULTS = {"chip1.prog": [(3e-3, "fail", None)],
+                       "chip2.prog": [(3.4e-3, "fail", None)]}
+SIM_FAILOVER_DEADLINE_S = 5e-4
+
+
+def _sim_traces(tmp: pathlib.Path, small: bool = False) -> None:
+    """Phase 11's first child: phase 9(b)'s train step and phase 7's
+    MGMark programs at ``default_size(4)``, traced on meta, pickled to
+    ``tmp/traces.pkl`` (``small``: the smoke config and size 256, for a
+    run on a CPU host)."""
+    import pickle
+    import torch
+    from repro_torch.core import analyze
+    from repro_torch.models import api, get_config
+    from repro_torch.patterns import WORKLOADS, Mesh
+    from repro_torch.patterns.base import MODES, trace
+    from repro_torch.sharding import umode
+    from repro_torch.train import optim
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH + ("-smoke" if small else ""))
+    shape = (2, 64) if small else (TRAIN_BATCH, TRAIN_SEQ)
+    state = optim.init_state(api.init(0, cfg, device="meta"))
+    batch = {k: torch.zeros(shape, dtype=torch.int64, device="meta")
+             for k in ("tokens", "targets")}
+    traces = {"train": analyze(umode.make_train_step(cfg, optim.OptConfig()),
+                               state, batch)}
+    mesh = Mesh(["cpu"] * MGMARK_SHARDS)
+    for name, mod in WORKLOADS.items():
+        args = mod.make_args(256 if small else mod.default_size(MGMARK_SHARDS))
+        if name == "aes":                   # round keys and S-box, no key
+            plain, _key, rk, sb = args
+            args = (plain, rk, sb)
+        for mode in MODES:
+            traces[f"{name}/{mode}"] = trace(
+                getattr(mod, f"make_{mode}")(mesh), args)
+    (tmp / "traces.pkl").write_bytes(pickle.dumps(traces))
+    print(f"  traced {cfg.name}'s train step ({len(traces['train'].trace)} "
+          f"ops) and {len(traces) - 1} MGMark programs on meta in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _sim_runs(tmp: pathlib.Path) -> None:
+    """Phase 11's second child: (a) each trace under serial and under
+    every round scheduler x executor, (b) the serving simulator, (c) the
+    sweep; every summary must equal serial's on the same fabric.  Writes
+    the numbers to ``tmp/phase11.json``."""
+    import os
+    import pickle
+    import platform
+    import tempfile
+    from repro_torch.core import ChipSpec, SystemSpec, simulate
+    from repro_torch.models import get_config
+    from repro_torch.serve import sim as serve_sim
+    sys.path.insert(0, str(ROOT))
+    from tools import torch_sweep
+    traces = pickle.loads((tmp / "traces.pkl").read_bytes())
+    combos = [("serial", None)] + [(s, e) for s in SIM_SCHEDULERS
+                                   for e in SIM_EXECUTORS]
+    h100 = ChipSpec(**H100_CHIP)
+    cpu = [ln.split(":", 1)[1].strip() for ln in pathlib.Path(
+        "/proc/cpuinfo").read_text().splitlines()
+        if ln.startswith("model name")] or [
+            f"{platform.machine()}, model not reported"]
+    out = {"cpu_count": os.cpu_count(), "cpu_model": cpu[0],
+           "traces": {}, "wall_s": {}}
+    print(f"  host: {os.cpu_count()} CPUs ({cpu[0]})", flush=True)
+
+    # (a) every trace under every scheduler x executor
+    wall: dict = {}
+    for key, cost in traces.items():
+        one = key == "train"
+        spec = SystemSpec(chip=h100, pod_shape=(1, 1) if one
+                          else (1, MGMARK_SHARDS))
+        row = {}
+        for fabric in ("analytic",) if one else ("analytic", "event"):
+            oracle = None
+            for sched, ex in combos:
+                t0 = time.perf_counter()
+                rep = simulate(cost=cost, spec=spec, scheduler=sched,
+                               executor=ex, fabric=fabric,
+                               device_limit=1 if one else SIM_DEVICE_LIMIT)
+                dt = time.perf_counter() - t0
+                label = sched if ex is None else f"{sched}/{ex}"
+                wall.setdefault(fabric, {}).setdefault(label, 0.0)
+                wall[fabric][label] += dt
+                if oracle is None:
+                    oracle = rep.summary()
+                    row[fabric] = {"sim_ms": rep.time_s * 1e3,
+                                   "events": rep.events}
+                check(rep.summary() == oracle,
+                      f"phase 11 (a): {key} on {fabric} under {label} "
+                      f"differs from serial")
+        out["traces"][key] = row
+    out["wall_s"] = wall
+    for fabric, by in wall.items():
+        print(f"  (a) wall s over {len(traces)} traces on {fabric}: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in by.items()), flush=True)
+    out["ring"] = _sim_ring(combos)
+    print(f"  (a) wall s of the diverged ring ({SIM_RING_NODES} nodes x "
+          f"{SIM_RING_TICKS} ticks, {SIM_RING_WORKERS} workers, best of "
+          f"{SIM_RING_REPEAT}): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in out["ring"].items()), flush=True)
+
+    # (b) the serving simulator
+    def serve(scen, spec, **kw):
+        runs = {}
+        for fabric in ("analytic", "event"):
+            oracle = None
+            for sched, ex in [("serial", None)] + [
+                    (SIM_SERVE_SCHEDULER, e) for e in SIM_EXECUTORS]:
+                t0 = time.perf_counter()
+                rep = serve_sim.run_serving(scen, spec=spec, fabric=fabric,
+                                            scheduler=sched, executor=ex,
+                                            **kw)
+                label = sched if ex is None else f"{sched}/{ex}"
+                runs[f"{fabric}/{label}"] = time.perf_counter() - t0
+                if oracle is None:
+                    oracle, first = rep.summary(), rep
+                check(rep.summary() == oracle,
+                      f"phase 11 (b): {scen.name} on {fabric} under "
+                      f"{label} differs from serial")
+            runs[f"{fabric}/report"] = first
+        return runs
+    spec1 = SystemSpec(chip=h100, pod_shape=(1, 1))
+    scen = serve_sim.build_scenario(spec1, name="qwen2-1.5b",
+                                    model=get_config(TRAIN_ARCH),
+                                    **SIM_SERVE_TRAFFIC)
+    runs = serve(scen, spec1)
+    new_tokens = sum(r.decode_len for t in scen.tenants for r in t.requests)
+    out["serve"] = {}
+    for fabric in ("analytic", "event"):
+        rep = runs.pop(f"{fabric}/report")
+        check(rep.completed == rep.offered > 0,
+              f"phase 11 (b): {rep.completed} of {rep.offered} served")
+        out["serve"][fabric] = {
+            "requests": rep.offered, "new_tokens": new_tokens,
+            "sim_s": rep.time_s, "sim_tokens_per_s": new_tokens / rep.time_s,
+            "p50_s": rep.p50_s, "p99_s": rep.p99_s}
+    out["serve"]["wall_s"] = runs
+    spec4 = SystemSpec(pod_shape=(2, 2))
+    fo = serve(serve_sim.build_scenario(spec4, **SIM_FAILOVER), spec4,
+               deadline_s=SIM_FAILOVER_DEADLINE_S, recovery=True,
+               faults=SIM_FAILOVER_FAULTS)
+    rep = fo.pop("analytic/report")
+    fo.pop("event/report")
+    check(rep.chip_deaths == 2 and rep.completed + rep.dropped
+          == rep.offered, f"phase 11 (b): failover {rep.chip_deaths} "
+                          f"deaths, {rep.completed} + {rep.dropped} of "
+                          f"{rep.offered}")
+    out["failover"] = {"chip_deaths": rep.chip_deaths,
+                       "retries": rep.retries, "completed": rep.completed,
+                       "offered": rep.offered, "wall_s": fo}
+
+    # (c) the sweep's quick grid: inline, then two workers from the plan
+    # cache the inline run wrote
+    with tempfile.TemporaryDirectory(dir=tmp) as d:
+        cache = os.path.join(d, "plans")
+        grid = torch_sweep.GRIDS["quick"]
+        t0 = time.perf_counter()
+        inline = torch_sweep.run_sweep(grid, out=os.path.join(d, "a.json"),
+                                       workers=0, cache_dir=cache,
+                                       quiet=True)
+        t1 = time.perf_counter()
+        pool = torch_sweep.run_sweep(grid, out=os.path.join(d, "b.json"),
+                                     workers=2, cache_dir=cache, quiet=True)
+        t2 = time.perf_counter()
+        rows = [torch_sweep.load_results(os.path.join(d, f))["rows"]
+                for f in ("a.json", "b.json")]
+    skip = ("wall_s", "plan_lookups", "plan_misses")
+    check(inline["errors"] == pool["errors"] == 0 and rows[0].keys()
+          == rows[1].keys() and all(
+              {k: v for k, v in rows[0][c].items() if k not in skip}
+              == {k: v for k, v in rows[1][c].items() if k not in skip}
+              for c in rows[0]),
+          "phase 11 (c): the pool's rows differ from the inline rows")
+    check(pool["plan_cache_lookups"] > 0
+          and pool["plan_cache_hit_rate"] == 1.0,
+          f"phase 11 (c): the rerun's plan-cache hit rate "
+          f"{pool['plan_cache_hit_rate']} of {pool['plan_cache_lookups']}")
+    out["sweep"] = {"configs": inline["grid_points"],
+                    "inline_s": t1 - t0, "pool_s": t2 - t1,
+                    "pool_plan_hit_rate": pool["plan_cache_hit_rate"],
+                    "inline_plan_hit_rate": inline["plan_cache_hit_rate"]}
+    (tmp / "phase11.json").write_text(json.dumps(out))
+
+
+def _sim_ring(combos) -> dict:
+    """The diverged ring of benchmarks/engine_scalability.py on the
+    port's engine: best-of wall seconds by scheduler x executor, every
+    run's node state equal to serial's."""
+    import random
+    from repro_torch.core import Component, Connection, Engine, Request
+
+    class JitterNode(Component):
+        """benchmarks/engine_scalability.py's device-analog: op
+        latencies that diverge across nodes, a ping every 40 ticks."""
+
+        def __init__(self, name, seed, ticks, send_every=40):
+            super().__init__(name)
+            self.rng = random.Random(seed)
+            self.ticks, self.send_every = ticks, send_every
+            self.count = self.received = self.sig = 0
+
+        def start(self):
+            self.schedule("tick", self.rng.randint(50, 550))
+
+        def handle(self, event):
+            self.sig = hash((self.sig, self.engine.now, event.kind))
+            if event.kind == "tick":
+                self.count += 1
+                if self.count % self.send_every == 0:
+                    self.port("out").send(Request(src=self.port("out"),
+                                                  dst=None, kind="ping",
+                                                  size_bytes=64))
+                if self.count < self.ticks:
+                    self.schedule("tick", self.rng.randint(50, 550))
+            else:
+                self.received += 1
+
+    n, oracle, best = SIM_RING_NODES, None, {}
+    for sched, ex in combos:
+        label = sched if ex is None else f"{sched}/{ex}"
+        for _ in range(SIM_RING_REPEAT):
+            eng = Engine(scheduler=sched, executor=ex,
+                         max_workers=SIM_RING_WORKERS)
+            nodes = [eng.register(JitterNode(f"n{i}", i, SIM_RING_TICKS))
+                     for i in range(n)]
+            for i in range(n):
+                conn = eng.register(Connection(f"ring{i}", latency_s=4e-9))
+                conn.plug(nodes[i].port("out")).plug(
+                    nodes[(i + 1) % n].port("in"))
+            for nd in nodes:
+                nd.start()
+            t0 = time.perf_counter()
+            end = eng.run()
+            dt = time.perf_counter() - t0
+            state = (end, eng.events_processed,
+                     [(nd.sig, nd.count, nd.received) for nd in nodes])
+            oracle = oracle or state
+            check(state == oracle, f"phase 11 (a): the diverged ring under "
+                                   f"{label} differs from serial")
+            best[label] = min(best.get(label, dt), dt)
+    return best
+
+
+def sim_child(stage: str, tmp: str, small: bool = False) -> None:
+    """Entry of phase 11's child interpreters."""
+    if stage == "trace":
+        _sim_traces(pathlib.Path(tmp), small)
+    else:
+        _sim_runs(pathlib.Path(tmp))
+
+
+def _run_sim_child(stage: str, tmp: pathlib.Path) -> None:
+    import os
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]), OMP_NUM_THREADS="1",
+        OPENBLAS_NUM_THREADS="1", MKL_NUM_THREADS="1",
+        CUDA_VISIBLE_DEVICES="")
+    sys.stdout.flush()
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke.sim_child({stage!r}, {str(tmp)!r})"],
+        cwd=ROOT, env=env, timeout=SIM_CHILD_TIMEOUT_S)
+    check(proc.returncode == 0,
+          f"phase 11's {stage} child exited {proc.returncode}")
+
+
+def phase_sim(serve_tokens_per_s: float, mgmark_sim: dict) -> dict:
+    """Phase 11.  ``serve_tokens_per_s``: phase 3's measured tok/s;
+    ``mgmark_sim``: phase 7's simulated ms by run.  Returns the phase's
+    numbers."""
+    import tempfile
+    print("== phase 11: the simulator's parallel engine on the card's host "
+          "(child interpreters, no CUDA context)", flush=True)
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        tmp = pathlib.Path(d)
+        _run_sim_child("trace", tmp)
+        _run_sim_child("simulate", tmp)
+        out = json.loads((tmp / "phase11.json").read_text())
+    for key, row in out["traces"].items():
+        if key == "train":
+            print(f"  {TRAIN_ARCH} train step SIMULATED on one h100-sxm: "
+                  f"{row['analytic']['sim_ms']:.3f} ms (phase 9(b)'s "
+                  f"trace, simulated again)")
+            continue
+        phase7 = mgmark_sim.get(key, {}).get("h100-sxm")
+        print(f"  {key} SIMULATED on 4 h100-sxm: analytic "
+              f"{row['analytic']['sim_ms']:.6f} ms, event "
+              f"{row['event']['sim_ms']:.6f} ms (phase 7, analytic: "
+              f"{phase7 if phase7 is None else f'{phase7:.6f}'} ms)")
+        # the same program traced again, on the same spec: the same time
+        check(phase7 is None or phase7 == row["analytic"]["sim_ms"],
+              f"phase 11: {key}'s trace simulates to "
+              f"{row['analytic']['sim_ms']} ms, phase 7's to {phase7}")
+    for fabric in ("analytic", "event"):
+        s = out["serve"][fabric]
+        print(f"  (b) qwen2-1.5b serving SIMULATED on one h100-sxm "
+              f"({fabric}): {s['sim_tokens_per_s']:.1f} tok/s, "
+              f"{s['new_tokens']} tokens of {s['requests']} requests in "
+              f"{s['sim_s'] * 1e3:.3f} ms, p99 {s['p99_s'] * 1e3:.3f} ms; "
+              f"phase 3 measured {serve_tokens_per_s:.1f} tok/s")
+    print(f"  (b) wall s: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in out["serve"]["wall_s"].items()))
+    print(f"  (b) failover: {out['failover']['chip_deaths']} chips lost, "
+          f"{out['failover']['completed']} of {out['failover']['offered']} "
+          f"served, {out['failover']['retries']} retries; wall s "
+          + ", ".join(f"{k} {v:.3f}"
+                      for k, v in out["failover"]["wall_s"].items()))
+    sw = out["sweep"]
+    print(f"  (c) sweep: {sw['configs']} configs inline in "
+          f"{sw['inline_s']:.2f} s, with 2 workers in {sw['pool_s']:.2f} s, "
+          f"rows equal, plan-cache hit rate {sw['pool_plan_hit_rate']:.2f}")
+    out["seconds"] = time.perf_counter() - t0
+    out["phase3_tokens_per_s"] = serve_tokens_per_s
+    print(f"  phase 11: {out['seconds']:.1f} s on {out['cpu_count']} CPUs "
+          f"({out['cpu_model']})", flush=True)
+    return out
+
+
 def _paths(tree, prefix=()):
     """The key paths of a nested dict, in ``optim.leaves`` order."""
     if isinstance(tree, dict):
@@ -1896,6 +2261,9 @@ def main() -> int:
     train, train_launches = phase_train(TRAIN_ARCH, 8)
     loop_phase, loop_launches = phase_loop(train["steps"]["step_ms_median"])
     mamba, mamba_train_launches, mamba_loop_launches = phase_mamba()
+    sim = phase_sim(serve["qwen2-1.5b"]["tokens_per_s"],
+                    {f"{r['name']}/{r['mode']}": r["sim_ms"]
+                     for r in mgmark_rows})
     # (shape, dtype) of each kernel's row in the kernels line
     H, W, K, _ = STENCIL_CASES[0]
     L, size, dist, _, _ = BITONIC_CASES[0]
@@ -1983,7 +2351,7 @@ def main() -> int:
     (out / "chip_smoke.json").write_text(json.dumps(
         {"device": name, "kernels": kernels, "serve": serve,
          "mgmark": mgmark_rows, "mgmark_simulated": mgmark_sim,
-         "train": train, **loop_phase, "mamba": mamba,
+         "train": train, **loop_phase, "mamba": mamba, "sim": sim,
          "seconds": time.perf_counter() - t0},
         indent=1))
     smi = subprocess.run(

@@ -4,18 +4,24 @@ cost front end that feeds it (port of ``repro/core``).
 Everything but the front end is a copy of the reference's pure-Python
 modules (``hw``, ``topology``, ``event``, ``hooks``, ``component``,
 ``connection``, ``chip``, ``system``, ``trace``, ``simulate``,
-``roofline``, the engine with its serial scheduler), verbatim but for
-their import lines and what they had to lose: the round schedulers, the
-executor backends and the event fabric are not copied yet, and asking
-for them raises ``ValueError``.  The arithmetic is the reference's, held
-to it with ``==`` (``tests/test_torch_core.py``).  The front end,
+``roofline``, the engine with its serial and round schedulers and its
+thread and process executors), verbatim but for their import lines and
+one stated departure: the process executor's ring publishes each
+counter with one 8-byte store (``engine/executor/rings.py``).  The
+arithmetic is the reference's, held to it with ``==``
+(``tests/test_torch_core.py``, ``tests/test_torch_sim_engine.py``).
+The front end,
 ``hlo.analyze(fn, *args)``, traces a torch program into the reference's
 ``HloCost`` records in place of parsing XLA's HLO text.
 """
 from .event import (Event, EventQueue, ShardedEventQueue, LocalQueue,
                     EmptyQueueError)
-from .engine import (Engine, Scheduler, SCHEDULERS, make_scheduler,
-                     register_scheduler, SerialScheduler)
+from .engine import (Engine, Scheduler, RoundScheduler, SCHEDULERS,
+                     make_scheduler, register_scheduler, SerialScheduler,
+                     BatchParallelScheduler, LookaheadScheduler,
+                     BoundedLagScheduler,
+                     Executor, EXECUTORS, make_executor, register_executor,
+                     ThreadExecutor, ProcExecutor)
 from .component import Component, Port
 from .connection import (Connection, LagNode, LinkConnection,
                          LimitedConnection, Request)
@@ -37,8 +43,12 @@ from .roofline import (RooflineTerms, build_terms, collective_sim_time,
 
 __all__ = [
     "Event", "EventQueue", "ShardedEventQueue", "LocalQueue",
-    "EmptyQueueError", "Engine", "Scheduler", "SCHEDULERS",
-    "make_scheduler", "register_scheduler", "SerialScheduler",
+    "EmptyQueueError", "Engine", "Scheduler",
+    "RoundScheduler", "SCHEDULERS", "make_scheduler", "register_scheduler",
+    "Executor", "EXECUTORS", "make_executor", "register_executor",
+    "ThreadExecutor", "ProcExecutor",
+    "SerialScheduler", "BatchParallelScheduler", "LookaheadScheduler",
+    "BoundedLagScheduler",
     "Component", "Port",
     "Connection", "LagNode", "LinkConnection", "LimitedConnection", "Request",
     "Hook", "HookCtx", "Hookable", "Tracer", "MetricsHook", "StallHook",

@@ -1,13 +1,6 @@
 """Engine core + pluggable scheduler interface (copy of
 ``repro/core/engine/base.py`` for the port, which imports nothing of
-``repro``).
-
-The copy keeps the engine, the scheduler registry and the cluster
-analysis; the round machinery (``_GroupCtx``, ``RoundScheduler``,
-``_MergedCtx``) and the executor backends are cut, so the one scheduler
-registered is ``serial``.  Asking for ``batch``, ``lookahead`` or
-``bounded``, or for any executor, raises ``ValueError`` naming the later
-slice that ports them (ROADMAP, open items).  The reference's text
+``repro``; verbatim but for this paragraph).  The reference's text
 follows.
 
 Engine core + pluggable scheduler interface.
@@ -76,6 +69,7 @@ from heapq import heapify as _heapify, heappop as _heappop, \
 from ..connection import LagNode
 from ..event import Event, EventQueue, LocalQueue, ShardedEventQueue
 from ..hooks import Hookable, EVENT_START, EVENT_END
+from .executor import make_executor
 
 _INF = float("inf")                         # unbounded window / idle cluster
 
@@ -155,10 +149,6 @@ class Scheduler:
 
 
 SCHEDULERS: dict = {}
-# the reference's other schedulers, and where the port takes them up
-_LATER_SCHEDULERS = ("batch", "lookahead", "bounded")
-_LATER = ("the round schedulers, the thread executor and the event fabric "
-          "come with a later slice (ROADMAP §1 item 2)")
 
 
 def register_scheduler(name: str, factory) -> None:
@@ -180,17 +170,11 @@ def make_scheduler(spec, max_workers: int = 4, executor=None) -> Scheduler:
         try:
             factory = SCHEDULERS[spec]
         except KeyError:
-            if spec in _LATER_SCHEDULERS:
-                raise ValueError(
-                    f"scheduler {spec!r} is not ported yet: the port has "
-                    f"{sorted(SCHEDULERS)}; {_LATER}") from None
             raise ValueError(f"unknown scheduler {spec!r}; "
                              f"available: {sorted(SCHEDULERS)}") from None
         sched = factory(max_workers=max_workers)
     if executor is not None:
-        raise ValueError(f"executor {executor!r}: the port has no executor "
-                         f"backends (its serial scheduler runs in-thread); "
-                         f"{_LATER}")
+        sched.executor_spec = executor
     return sched
 
 
@@ -504,3 +488,648 @@ class Engine(Hookable):
                 plain.append((ix, nodes_cluster[ix]))
         return LagGraph(ncl, nodes_cluster, out, horizon_in,
                         sorted(by_cluster.items()), plain)
+
+
+# -- shared round machinery ---------------------------------------------------
+
+class _GroupCtx:
+    """One cluster's execution context, reused across every round.
+
+    Owns a local heap (the cluster's slice of the window plus events its
+    handlers push back into it) and a post log whose stamps reproduce the
+    order a serial engine would have posted in: (executing event's time,
+    snapshot generation, rank, seq, intra-handler index) -- generation
+    first among same-time events because serial runs a full snapshot
+    round across *all* ranks before any of that round's delay-0 posts.
+    Group execution is single-threaded, so none of this needs locks.
+
+    The context is long-lived (allocated once per cluster in
+    ``RoundScheduler.prepare``): :meth:`begin` resets it for a round by
+    adopting the cluster's shard slice wholesale.
+    """
+
+    __slots__ = ("sched", "group_id", "window_end", "horizons", "local",
+                 "posts", "executed", "max_time", "_adopted", "_entry",
+                 "_post_idx", "_defer", "_strict")
+
+    _IDLE_ENTRY = (0, 0, 0, 0, None)
+
+    def __init__(self, sched: "RoundScheduler", group_id: int) -> None:
+        self.sched = sched
+        self.group_id = group_id
+        self.window_end = 0
+        # Per-cluster safe horizons of the current bounded-lag wave
+        # (shared list, indexed by cluster id); None under a global
+        # barrier, where every cluster shares this context's window_end.
+        self.horizons = None
+        self.local = LocalQueue()           # in-window posts only (side heap)
+        self.posts: list = []               # (entry stamp, idx, event)
+        self.executed = 0
+        self.max_time = 0
+        self._adopted: list = []            # this round's shard slice
+        self._entry = self._IDLE_ENTRY      # executing event's heap entry
+        self._post_idx = 0
+        self._defer = sched.defer_all_posts
+        self._strict = sched.strict_window
+
+    def begin(self, window_end, entries: list) -> None:
+        """Reset for a new round, adopting the cluster's popped shard
+        slice (ascending (time, gen, rank, seq, event) entries).  The
+        slice is *iterated in place* during :meth:`execute`; only events
+        handlers push back into the window go through the side heap, so
+        the common no-local-post round re-pops nothing.
+
+        ``_post_idx`` resets per round, not per event: the commit stamp
+        (entry, idx) only ever tie-breaks posts of the *same* executing
+        event, so any monotonic idx sequence within the round works.
+        """
+        self.window_end = window_end
+        self._adopted = entries
+        self.local.clear()
+        self.max_time = 0
+        self._post_idx = 0
+
+    def post(self, event: Event) -> None:
+        assert event.time >= self._entry[0], "cannot schedule into the past"
+        idx = self._post_idx
+        self._post_idx = idx + 1
+        if event.time < self.window_end:    # in-window: local or unsafe
+            if (not self._defer
+                    and event.component.cluster_id == self.group_id):
+                # Same-timestamp posts inherit creator generation + 1 so
+                # they wait for the next snapshot round, like serial;
+                # later timestamps start fresh at generation 0.  No stamp
+                # needed: local events never reach the commit phase.
+                e = self._entry
+                self.local.push_new(
+                    event, generation=e[1] + 1 if event.time == e[0] else 0)
+                return
+            if (self._strict
+                    and event.component.cluster_id != self.group_id):
+                # Global barrier: any cross-cluster post inside the
+                # shared window is unsafe.  Bounded lag: unsafe only
+                # below the *target's* horizon -- own-window arrival is
+                # legitimate when the target lags behind this cluster.
+                h = self.horizons
+                if h is None or event.time < h[event.component.cluster_id]:
+                    self._unsafe_post(event)
+        elif self._strict and self.horizons is not None:
+            # Beyond own window but possibly below the target's horizon:
+            # reachable only through an edge the connection failed to
+            # declare in ``cluster_edges`` (or a send cheating its own
+            # ``min_latency_ps``) -- fail loudly, never corrupt.
+            cid = event.component.cluster_id
+            if cid != self.group_id and event.time < self.horizons[cid]:
+                self._unsafe_post(event)
+        # The executing event's heap entry doubles as the post stamp:
+        # (entry, idx) sorts exactly like the serial post order
+        # (time, gen, rank, seq, intra-handler index), and the tuple
+        # comparison can never reach the entry's event field because
+        # seqs are unique -- zero allocations beyond the triple.
+        self.posts.append((self._entry, idx, event))
+
+    def _unsafe_post(self, event: Event) -> None:
+        h = self.horizons
+        bound = (self.window_end if h is None
+                 else h[event.component.cluster_id])
+        raise RuntimeError(
+            f"lookahead safety violation: {event!r} targets another "
+            f"cluster before its safe horizon {bound}; route "
+            "cross-component traffic through a Connection with latency "
+            ">= the engine's lookahead window (and with the edge "
+            "declared in cluster_edges under bounded lag)")
+
+    def execute(self) -> "_GroupCtx":
+        """Drain the round: a two-stream merge of the adopted slice
+        (iterated by index -- it is already sorted) against the
+        side heap of events handlers push back into the window.  The
+        stream pick compares raw entry tuples; local seqs live above
+        ``LOCAL_SEQ_BASE`` so the comparison never reaches the event.
+
+        Event dispatch is inlined (the body of ``Engine._handle_one``)
+        with the thread-local clock and sink managed once per round
+        instead of once per event -- with ~2-3 events per cluster per
+        round, the per-activation wrappers would otherwise rival the
+        handlers themselves.
+        """
+        eng = self.sched.engine
+        tls = eng._tls
+        prev_sink = getattr(tls, "sink", None)
+        prev_now = getattr(tls, "now", None)
+        tls.sink = self.post
+        hooked = eng._handle_hooked
+        adopted = self._adopted
+        n_adopted = len(adopted)
+        side = self.local._heap
+        pop = _heappop
+        entry = None
+        i = 0
+        n = 0
+        try:
+            while True:
+                if side:
+                    if i < n_adopted and adopted[i] < side[0]:
+                        entry = adopted[i]
+                        i += 1
+                    else:
+                        entry = pop(side)
+                elif i < n_adopted:
+                    entry = adopted[i]
+                    i += 1
+                else:
+                    break
+                self._entry = entry
+                ev = entry[4]
+                comp = ev.component
+                tls.now = entry[0]
+                # eng.hooks_active is re-read per event (not hoisted):
+                # a handler may attach an engine hook mid-round, and
+                # serial would observe the remaining events with it
+                if eng.hooks_active or comp.hooks_active:
+                    hooked(ev, comp)
+                elif not comp.fault_failed:
+                    if ev.kind != "notify_available":
+                        comp.handle(ev)
+                    else:
+                        comp.notify_available(ev.payload)
+                elif ev.kind == "notify_available":
+                    ev.payload.reclaim(comp)
+                n += 1
+        finally:
+            self.executed = n
+            if n:
+                self.max_time = entry[0]    # merge order => the maximum
+            tls.sink = prev_sink
+            tls.now = prev_now
+        return self
+
+
+class RoundScheduler(Scheduler):
+    """Round-based scheduler: pop a window per shard, run groups, commit.
+
+    Grouping is always by engine cluster (``compute_clusters``; the
+    event queue is sharded the same way), so a cluster's window slice
+    pops straight out of its own shard.  Subclasses choose the window
+    width (:meth:`window_end`); ``use_pool`` turns on parallel worker
+    dispatch.  *Where* a grouped round's contexts execute is delegated
+    to a pluggable executor backend (``executor_spec``, default
+    ``"threads"``; see :mod:`repro.core.engine.executor`) -- this class
+    only selects the execution *mode* per round (merged serial-
+    equivalent vs grouped) and runs the commit.  The commit phase
+    pushes newly created events per destination shard in serial post
+    order (stamp order), so all same-(time, rank) tie-breaks -- the
+    only place seq is ever consulted -- are identical to serial
+    execution, whichever executor ran the round.
+    """
+
+    use_pool = False
+    strict_window = False
+    record_window_widths = False
+    # Bounded-lag mode: drop the global round barrier and give every
+    # cluster its own conservative horizon derived from the cluster
+    # graph (``Engine.cluster_graph``).  ``run`` then dispatches to
+    # :meth:`_run_bounded` -- per-cluster windows, stamp-staged commit
+    # with seq assignment deferred to each shard's flush.
+    bounded_lag = False
+    # Executor backend (name or instance) resolved in ``prepare``.  The
+    # "threads" default keeps state in-process, which is what allows
+    # the adaptive merged/degenerate inline paths below; backends with
+    # shard-resident state (``"procs"``) declare ``inline_rounds =
+    # False`` and receive every round, however narrow.
+    executor_spec = "threads"
+    executor = None                         # bound instance, set by prepare
+    # Record per-round (cluster id, events) pairs into
+    # ``engine.round_group_sizes`` -- the input to the architectural
+    # (critical-path) speedup model benchmarks report.  Off by default:
+    # long runs would accumulate one tuple per round.
+    record_group_sizes = False
+    # One-tick windows must defer even same-group posts to the commit
+    # phase: a same-time post from a *lower-rank* group (e.g. a
+    # zero-latency connection's request) would otherwise be committed
+    # while the target group already ran its own same-time self-posts
+    # locally -- inverting serial's seq order between the two.  Windowed
+    # schedulers instead fuse zero-latency connections into the target's
+    # cluster, which keeps in-window local execution serial-ordered.
+    defer_all_posts = True
+    # Rounds smaller than this run inline on the scheduler thread: pool
+    # dispatch costs a fixed ~100us per round, so scattering a dozen
+    # events across workers is pure overhead (and under CPython's GIL,
+    # pure-Python handlers gain nothing physical from the pool anyway).
+    # The pool engages only when a round is wide enough to amortize the
+    # dispatch -- the regime where GIL-releasing handlers /
+    # free-threaded builds actually scale.
+    pool_min_events = 256
+
+    def window_end(self, t: int):
+        return t + 1                        # one integer-ps tick
+
+    def group_of(self, component) -> int:
+        """The sequential-execution group (== queue shard) of a
+        component.  Always its engine cluster."""
+        return component.cluster_id
+
+    def prepare(self) -> None:
+        """Called once per ``run``: derive clusters, shard the queue,
+        build the persistent per-cluster contexts and bring up the
+        executor backend."""
+        eng = self.engine
+        self._cluster_of = eng.compute_clusters()
+        nshards = max(1, (max(self._cluster_of) + 1) if self._cluster_of
+                      else 1)
+        eng.queue = ShardedEventQueue.from_queue(eng.queue, nshards)
+        self._ctxs = [_GroupCtx(self, gid) for gid in range(nshards)]
+        self._merged = _MergedCtx(self, -1)
+        self._merged.push_global = eng.queue.push
+        self._commit: list = []             # reused per-round post buffer
+        if self.bounded_lag:
+            self._lag_graph = eng.cluster_graph()
+            self._staged = [[] for _ in range(nshards)]
+            self._horizons = [0] * nshards
+        self.executor = make_executor(self.executor_spec,
+                                      max_workers=self.max_workers)
+        self.executor.bind(self)
+        self.executor.prepare(self._ctxs)
+
+    def run(self, until_ps: int = None) -> int:
+        if self.bounded_lag:
+            return self._run_bounded(until_ps)
+        eng = self.engine
+        self.prepare()
+        queue = eng.queue
+        ctxs = self._ctxs
+        commit = self._commit
+        executor = self.executor
+        # Only executors whose state lives in this process may let the
+        # scheduler thread execute events itself (the merged/degenerate
+        # serial-equivalent paths); shard-resident backends must see
+        # every round, however narrow.
+        inline_ok = executor.inline_rounds
+        pool_min = self.pool_min_events
+        record_widths = self.record_window_widths
+        record_groups = self.record_group_sizes
+        tls = eng._tls
+        serial_sink = guarded_push(eng, queue)
+        # Execution-mode predictor: rounds narrower than pool_min_events
+        # run serial-equivalent (merged / degenerate), wider rounds run
+        # grouped on the executor.  The mode must be chosen before the
+        # pop, so the previous round's width predicts the next -- safe
+        # because BOTH modes are bit-exact; a mispredict only costs
+        # speed, and the predictor corrects itself on the very next
+        # round.
+        prefer_merged = inline_ok and pool_min > 1 and not record_groups
+        failed = True
+        try:
+            while queue:
+                t = queue.peek_time()
+                if until_ps is not None and t > until_ps:
+                    break
+                eng.now = t
+                wend = self.window_end(t)
+                if until_ps is not None:
+                    wend = min(wend, until_ps + 1)
+
+                if prefer_merged:
+                    merged = queue.pop_window_merged(wend)
+                    nev = len(merged)
+                    prefer_merged = nev < pool_min
+                    if nev == 1:
+                        # Degenerate: the sink pushes posts straight onto
+                        # the (sharded) global queue in post order --
+                        # exactly serial semantics.
+                        ev = merged[0][4]
+                        prev_sink = getattr(tls, "sink", None)
+                        tls.sink = serial_sink
+                        try:
+                            eng._handle_one(ev)
+                        finally:
+                            tls.sink = prev_sink
+                        eng.events_processed += 1
+                        eng.batch_widths.append(1)
+                        if record_widths:
+                            eng.window_widths.append(1)
+                        eng.now = ev.time
+                        continue
+                    # Merged round: ONE group spanning every cluster --
+                    # the machinery's base case, serial-equivalent by
+                    # construction (see _MergedCtx); beyond-window posts
+                    # push themselves straight onto the sharded queue.
+                    ctx = self._merged
+                    ctx.begin(wend, merged)
+                    ctx.execute()
+                    eng.events_processed += ctx.executed
+                    eng.batch_widths.append(ctx.executed)
+                    if record_widths:
+                        eng.window_widths.append(ctx.executed)
+                    eng.now = ctx.max_time if ctx.max_time > t else t
+                    continue
+
+                popped, nev = queue.pop_window_sharded(wend)
+                prefer_merged = (inline_ok and nev < pool_min
+                                 and not record_groups)
+
+                tasks = []
+                for sid, entries in popped:
+                    ctx = ctxs[sid]
+                    ctx.begin(wend, entries)
+                    tasks.append(ctx)
+
+                executor.run_round(tasks, nev)
+
+                executed = 0
+                tmax = t
+                for ctx in tasks:
+                    executed += ctx.executed
+                    if ctx.max_time > tmax:
+                        tmax = ctx.max_time
+                eng.events_processed += executed
+                eng.batch_widths.append(executed)
+                if record_widths:
+                    eng.window_widths.append(executed)
+                if record_groups:
+                    eng.round_group_sizes.append(
+                        tuple((ctx.group_id, ctx.executed)
+                              for ctx in tasks))
+
+                # Commit: push this round's posts in serial post (stamp)
+                # order.  Each context's log is already stamp-sorted (its
+                # execution is sequential), so the combined commit is
+                # C-level bulk work: extend the runs together, one
+                # near-linear Timsort merge, then push -- ``queue.push``
+                # routes each event to its cluster's shard, where the
+                # stamp order becomes the same-(time, rank) seq order
+                # serial would have produced.  With a single contributing
+                # context the sort is skipped outright.
+                sources = 0
+                for ctx in tasks:
+                    if ctx.posts:
+                        sources += 1
+                        commit.extend(ctx.posts)
+                        ctx.posts.clear()
+                if commit:
+                    if sources > 1:
+                        # (entry, idx, event) triples sort by entry then
+                        # idx -- the serial post order; seq uniqueness
+                        # means the comparison never reaches the event
+                        commit.sort()
+                    push = queue.push
+                    for p in commit:
+                        push(p[2])
+                    commit.clear()
+                eng.now = tmax
+            failed = False
+        finally:
+            executor.finalize(failed=failed)
+        return eng.now
+
+    # -- bounded lag ----------------------------------------------------------
+    def _compute_horizons(self, lvt: list) -> list:
+        """Per-cluster safe execution horizons for one wave.
+
+        ``lvt[i]`` is cluster i's earliest pending event time (shard
+        head or staged in-flight post; ``inf`` when idle).  The classic
+        conservative earliest-input-time relaxation runs a multi-source
+        shortest path over the cluster graph::
+
+            eit[i] = min(lvt[i], min over in-edges j->i of eit[j] + L)
+
+        which bounds, transitively through idle clusters, the earliest
+        time *any* chain of future events could make cluster i execute.
+        Cluster i may then safely run every event strictly below::
+
+            H[i] = min over in-edges j->i of (eit[j] + L[j->i])
+
+        because an event posted by cluster j executing at ``tau >=
+        eit[j]`` arrives at ``tau + L >= H[i]`` -- nothing can appear
+        inside the window being executed.  The globally earliest
+        cluster always gets ``H > lvt`` (inter-cluster latencies are
+        >= 1), so every wave makes progress; clusters with no in-edges
+        are unbounded.
+
+        The relaxation runs over the *node-level* graph: beyond the
+        per-cluster default nodes (base = lvt), connections may have
+        declared predicate-refined nodes whose base is the earliest
+        pending event *matching the predicate* -- a link's in-flight
+        serialization vs. its still-queued transfer requests, the
+        controller's non-completion inputs.  Pred bases come from one
+        read-only scan of the owning shard's heap plus its staged
+        posts, done only for clusters that declared refinements.
+        """
+        g = self._lag_graph
+        ncl = g.n_clusters
+        eit = list(lvt)
+        if g.n_nodes > ncl:
+            eit.extend(_INF for _ in range(ncl, g.n_nodes))
+            for ix, cid in g.plain_nodes:   # pred-less waypoints
+                eit[ix] = lvt[cid]
+            shards = self.engine.queue._shards  # read-only heap scan
+            staged = self._staged
+            for cid, members in g.pred_scans:
+                for e in shards[cid]:
+                    t, ev = e[0], e[4]
+                    for ix, pred in members:
+                        if t < eit[ix] and pred(ev):
+                            eit[ix] = t
+                for p in staged[cid]:
+                    ev = p[2]
+                    t = ev.time
+                    for ix, pred in members:
+                        if t < eit[ix] and pred(ev):
+                            eit[ix] = t
+        out_edges = g.out
+        heap = [(t, i) for i, t in enumerate(eit) if t != _INF]
+        _heapify(heap)
+        while heap:
+            d, i = _heappop(heap)
+            if d > eit[i]:
+                continue
+            for j, lat in out_edges[i]:
+                nd = d + lat
+                if nd < eit[j]:
+                    eit[j] = nd
+                    _heappush(heap, (nd, j))
+        horizons = self._horizons
+        for i, edges in enumerate(g.horizon_in):
+            h = _INF
+            for j, lat in edges:
+                b = eit[j] + lat
+                if b < h:
+                    h = b
+            horizons[i] = h
+        return horizons
+
+    def _run_bounded(self, until_ps: int = None) -> int:
+        """Bounded-lag drain: per-cluster windows, no global barrier.
+
+        Each wave computes every cluster's horizon, then runs *all*
+        clusters with work below their horizon concurrently -- a
+        decoupled cluster may advance far beyond the global floor while
+        a laggard catches up, synchronizing only with the clusters it
+        actually exchanges events with.
+
+        Bit-identity is preserved by deferring seq assignment: a wave's
+        beyond-window / cross-cluster posts are *staged* per destination
+        shard still carrying only their serial post-order stamps, and a
+        shard's staged posts are flushed (stamp-sorted, seqs assigned,
+        pushed) only once the shard's horizon passes their arrival time
+        -- at which point conservatism guarantees every same-(time,
+        rank) competitor has already been staged, so per-shard seq order
+        equals serial's.  Cross-shard seq skew is unobservable (the
+        seq-locality argument on ``ShardedEventQueue``).
+
+        The merged / degenerate inline paths are structurally disabled:
+        they assign seqs at post time, which is only serial-equivalent
+        when all clusters share one floor.  Narrow waves instead run
+        grouped-inline on the executor (the thread backend executes
+        small rounds on the scheduler thread anyway).
+        """
+        eng = self.engine
+        self.prepare()
+        queue = eng.queue
+        ctxs = self._ctxs
+        staged = self._staged
+        executor = self.executor
+        record_widths = self.record_window_widths
+        record_groups = self.record_group_sizes
+        nsh = len(ctxs)
+        shard_head = queue.shard_head_time
+        pop_shard = queue.pop_shard_window
+        push = queue.push
+        lvt = [0] * nsh
+        now_max = eng._now_global
+        failed = True
+        try:
+            while True:
+                floor = _INF
+                for sid in range(nsh):
+                    t = shard_head(sid)
+                    t = _INF if t is None else t
+                    for p in staged[sid]:
+                        pt = p[2].time
+                        if pt < t:
+                            t = pt
+                    lvt[sid] = t
+                    if t < floor:
+                        floor = t
+                if floor == _INF:
+                    break
+                if until_ps is not None and floor > until_ps:
+                    break
+                eng.now = floor
+                horizons = self._compute_horizons(lvt)
+                if until_ps is not None:
+                    cap = until_ps + 1
+                    for i in range(nsh):
+                        if horizons[i] > cap:
+                            horizons[i] = cap
+
+                tasks = []
+                nev = 0
+                for sid in range(nsh):
+                    hzn = horizons[sid]
+                    s = staged[sid]
+                    if s:
+                        due = [p for p in s if p[2].time < hzn]
+                        if due:
+                            if len(due) == len(s):
+                                s.clear()
+                            else:
+                                s[:] = [p for p in s if p[2].time >= hzn]
+                            due.sort()  # stamp order == serial seq order
+                            for p in due:
+                                push(p[2])
+                    entries = pop_shard(sid, hzn)
+                    if entries:
+                        ctx = ctxs[sid]
+                        ctx.begin(hzn, entries)
+                        ctx.horizons = horizons
+                        tasks.append(ctx)
+                        nev += len(entries)
+                assert tasks, "bounded-lag wave made no progress"
+
+                executor.run_round(tasks, nev)
+
+                executed = 0
+                tmax = floor
+                for ctx in tasks:
+                    executed += ctx.executed
+                    if ctx.max_time > tmax:
+                        tmax = ctx.max_time
+                eng.events_processed += executed
+                eng.batch_widths.append(executed)
+                if record_widths:
+                    eng.window_widths.append(executed)
+                if record_groups:
+                    eng.round_group_sizes.append(
+                        tuple((ctx.group_id, ctx.executed)
+                              for ctx in tasks))
+
+                # Stage (don't push) this wave's posts per destination
+                # shard; the flush above assigns seqs when it is safe.
+                for ctx in tasks:
+                    posts = ctx.posts
+                    if posts:
+                        for p in posts:
+                            staged[p[2].component.cluster_id].append(p)
+                        posts.clear()
+                if tmax > now_max:
+                    now_max = tmax
+            failed = False
+        finally:
+            # Return undelivered staged posts to the queue so pending
+            # state is all queue-resident (partial runs resume; the
+            # procs backend materializes payload refs off the queue).
+            # Safe: at exit nothing executed past ``until_ps`` and
+            # every future stamp exceeds the ones flushed here.
+            rem = []
+            for s in staged:
+                rem.extend(s)
+                s.clear()
+            if rem:
+                rem.sort()
+                for p in rem:
+                    push(p[2])
+            executor.finalize(failed=failed)
+        eng.now = now_max
+        return now_max
+
+    def describe(self) -> dict:
+        d = super().describe()
+        d["executor"] = (self.executor.describe() if self.executor
+                         is not None else self.executor_spec)
+        d["bounded_lag"] = self.bounded_lag
+        return d
+
+
+class _MergedCtx(_GroupCtx):
+    """Whole-window context for rounds too narrow to pay for grouping.
+
+    One group containing *every* cluster is the base case of the round
+    machinery: all in-window posts are same-group, so the LocalQueue's
+    generation bookkeeping reproduces serial's snapshot rounds exactly
+    and no cross-group commit-order hazard exists -- execution is
+    serial-equivalent by construction.  Because a single group's
+    execution order *is* the serial post order, beyond-window posts
+    skip the commit log entirely and push straight onto the sharded
+    queue -- seq assignment at post time equals what a stamp-ordered
+    commit would produce.  The unsafe-post guard is structural here:
+    with nothing running concurrently there is no determinism to
+    corrupt (set ``pool_min_events = 0`` to force grouped execution
+    when the diagnostic guard itself is wanted).
+    """
+
+    __slots__ = ("push_global",)
+
+    def __init__(self, sched: "RoundScheduler", group_id: int) -> None:
+        super().__init__(sched, group_id)
+        self.push_global = None             # bound queue.push, set by prepare
+
+    def post(self, event: Event) -> None:
+        e = self._entry
+        assert event.time >= e[0], "cannot schedule into the past"
+        if event.time < self.window_end:
+            self.local.push_new(
+                event, generation=e[1] + 1 if event.time == e[0] else 0)
+        else:
+            self.push_global(event)
+
+

@@ -1,23 +1,25 @@
 """Pluggable interconnect fabric (copy of ``repro/fabric`` for the port,
-which imports nothing of ``repro``): ``make_fabric("analytic", spec)``
-resolves a :class:`FabricBackend`, as in the reference.
+which imports nothing of ``repro``): ``make_fabric("analytic" |
+"event", spec)`` resolves a :class:`FabricBackend`, as in the reference.
 
 * ``analytic`` -- closed-form ring/hierarchical/bisection pricing
   (O(1) events per collective; no contention between collectives).
   Same-timestep pricings are batched through the vectorized kernels in
   :mod:`repro_torch.fabric.pricing` (bit-equal to the scalar formulas).
-
-The ``event`` backend (per-hop transfer events with link contention)
-and its plan cache are not copied yet: asking for it raises
-``ValueError`` naming the later slice.
+* ``event``    -- per-hop transfer events on link / DMA-engine
+  components; concurrent collectives queue on shared links.
+  Decompositions are memoized by content hash
+  (:mod:`repro_torch.fabric.plancache`, whose disk files are the port's
+  own: they never match a reference plan).
 """
-from . import pricing
+from . import plancache, pricing
 from .base import FabricBackend, FabricController
 from .analytic import AnalyticFabric
+from .event import (EventFabric, FabricLink, DmaEngine, DmaStep, Legs,
+                    Xfer, decompose, make_legs)
+from .plancache import cached_decompose
 
 FABRICS: dict = {}
-# the reference's other backend, and where the port takes it up
-_LATER_FABRICS = ("event",)
 
 
 def register_fabric(name: str, factory) -> None:
@@ -32,19 +34,17 @@ def make_fabric(spec_or_name, system_spec) -> FabricBackend:
     try:
         factory = FABRICS[spec_or_name]
     except KeyError:
-        if spec_or_name in _LATER_FABRICS:
-            raise ValueError(
-                f"fabric {spec_or_name!r} is not ported yet: the port has "
-                f"{sorted(FABRICS)}; the event fabric and its plan cache "
-                f"come with a later slice (ROADMAP §1 item 2)") from None
         raise ValueError(f"unknown fabric {spec_or_name!r}; "
                          f"available: {sorted(FABRICS)}") from None
     return factory(system_spec)
 
 
 register_fabric("analytic", AnalyticFabric)
+register_fabric("event", EventFabric)
 
 __all__ = [
-    "FabricBackend", "FabricController", "AnalyticFabric", "FABRICS",
-    "register_fabric", "make_fabric", "pricing",
+    "FabricBackend", "FabricController", "AnalyticFabric", "EventFabric",
+    "FabricLink", "DmaEngine", "DmaStep", "Legs", "Xfer", "decompose",
+    "cached_decompose", "make_legs", "FABRICS", "register_fabric",
+    "make_fabric", "plancache", "pricing",
 ]

@@ -74,7 +74,8 @@ def _imports(path):
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO)) for p in
-    [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]))
+    [*PORT.rglob("*.py"), REPO / "chip_smoke.py",
+     REPO / "tools" / "torch_sweep.py"]))
 def test_port_imports_neither_jax_nor_repro(path):
     for name in _imports(REPO / path):
         top = name.split(".")[0]

@@ -46,6 +46,7 @@ from repro_torch.models import api, get_config  # noqa: E402
 from repro_torch.patterns import Mesh  # noqa: E402
 from repro_torch.sharding import umode  # noqa: E402
 from repro_torch.train import optim  # noqa: E402
+from _torch_sim_nodes import convert_cost, pkg, run_in_child  # noqa: E402,E501
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = "qwen2-1.5b-smoke"
@@ -299,11 +300,26 @@ def test_sim_system_on_the_port(case):
     dict(scheduler="bounded"), dict(executor="threads"),
     dict(executor="procs"), dict(fabric="event")],
     ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
-def test_what_the_copy_lost_raises(kw):
-    """Schedulers, executors and fabrics not copied raise, naming the
-    later slice; nothing falls back to the serial path."""
-    with pytest.raises(ValueError, match="later slice"):
-        P.simulate(cost=_ring_cost(), spec=SMALL, device_limit=None, **kw)
+def test_what_the_copy_lost_now_runs(kw):
+    """The schedulers, executors and the event fabric the serial-only
+    copy lacked now run: the port's summary equals its own serial run on
+    the same fabric and the reference's run with the same keyword.  The
+    ``procs`` case runs in a fresh interpreter (``procs`` forks, and this
+    process holds JAX's and torch's threads), against the reference's
+    serial summary."""
+    if kw.get("executor") == "procs":
+        got = run_in_child("_torch_sim_cases", [
+            ("procs", "simulate_keyword", [sorted(kw.items())])],
+            with_ref=True)
+        assert got["procs"] == "ok", got["procs"]
+        return
+    oracle = P.simulate(cost=_ring_cost(), spec=SMALL, device_limit=None,
+                        fabric=kw.get("fabric", "analytic")).summary()
+    want = J.simulate(cost=convert_cost(_ring_cost(), pkg("repro")),
+                      spec=J.SystemSpec(pod_shape=(2, 4)),
+                      device_limit=None, **kw).summary()
+    got = P.simulate(cost=_ring_cost(), spec=SMALL, device_limit=None, **kw)
+    assert got.summary() == oracle == want
 
 
 def test_simulate_takes_no_hlo_text():
