@@ -98,14 +98,39 @@ Phases, each of which raises (and so exits non-zero) on failure:
    fabrics, summaries equal to serial's, the SIMULATED tokens/s beside
    phase 3's measured ones; (c) ``tools/torch_sweep.py``'s quick grid
    inline and on 2 workers: equal rows, the rerun's plans all from the
-   plan cache.
+   plan cache;
+12. dense configs — qwen1.5-4b and internlm2-20b served at full width as
+   in phase 3 (the probe held to PROBE_ATOL: tools/torch_probe_noise.py
+   read 0.066 and 0.070 at their 40 and 48 layers on an H100 80GB HBM3
+   at 700 W), every kernel's
+   launches equal to ``serve_launches``, no backward and no stored LSE;
+   phase 4's f32 check (internlm2-20b 16 layers deep: 79 GB of f32
+   weights at 48 fit no card); qwen1.5-110b's train step traced on meta
+   (phase 9(b)'s gates, FLOPs from ``api.train_step_matmul_flops``) and
+   SIMULATED on one H100 as the step's work, not a deployment;
+13. hybrid — zamba2-7b (81 SSM layers, 13 applications of the shared
+   attention block, 3 tail layers) served as in phase 5, its
+   ``backward()`` through the SSD and gated-norm backward kernels at
+   batch 1 x 256, the f32 check, its train step on meta, and
+   zamba2-7b-smoke trained 20 AdamW steps on the kernels;
+14. moe — qwen3-moe-30b-a3b (48 layers, 128 experts, top 8; 61 GB of
+   bf16 weights made on the card) served; in f32 at 8 of its 48 layers,
+   the (token, layer) routing choices of the kernel and plain paths
+   compared, the logits held where the routing agrees and the greedy
+   tokens identical; dbrx-132b's train step on meta (FLOPs over E x C
+   capacity slots); the two MoE smokes trained 20 AdamW steps.
+   Each of phases 12-14 starts with at most LEFT_OVER_LIMIT_GIB left on
+   the card, and every served model prints tok/s, decode step ms,
+   device busy ms and idle share, launches a decode step and peak
+   memory beside the card's name and power limit.
 
 Before the last line it prints ``{"kernels": [...]}`` and the card's name
 and power limit from nvidia-smi; the last line is ``{"ok": true,
 "device": {...}}``.  Every case, the serving and training numbers and
 the MGMark rows and simulated numbers, phase 9's ``loop``,
-``analysis`` and ``quickstart`` numbers and phase 11's ``sim`` numbers
-also go to ``build/chip_smoke.json``.  Without a CUDA
+``analysis`` and ``quickstart`` numbers, phase 11's ``sim`` numbers and
+phases 12-14's ``dense_configs``, ``hybrid`` and ``moe`` numbers also go
+to ``build/chip_smoke.json``.  Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -153,6 +178,11 @@ RMS_ROWS_MAMBA = (4, 995)       # at mamba2-1.3b's d_inner, 4096
 FUSED_ROWS = (1, 4, 995)
 ADD_NORM_DIMS = (1536, 2048)
 GATED_NORM_DIM = 4096
+# phase 12-14's models at the fused norms: the residual add at qwen1.5-4b's
+# (2560), zamba2-7b's (3584) and internlm2-20b's (6144) widths (qwen3-moe's
+# 2048 is mamba's above), zamba2-7b's gate over its d_inner (7168)
+NEW_ADD_NORM_DIMS = (2560, 3584, 6144)
+NEW_GATED_NORM_DIM = 7168
 # SSD chunk kernel at mamba2-1.3b's heads (H=64, P=64, N=128), (label, R, Q):
 # the 1000-token prompt (the main shape), a 77-token prompt, one token,
 # and a 2047-token prompt
@@ -168,6 +198,16 @@ SSD_BWD_CASES = (("R=8,Q=256", 8, 256, True), ("R=1,Q=77", 1, 77, True),
                                            False))
 SSD_BWD_TOL = 1e-4
 GATED_BWD_SHAPE = (2048, 4096)  # mamba2-1.3b's training rows, d_inner
+# SSD forward and backward at zamba2-7b's heads (H=112, P=64, N=64), (label,
+# R, Q): a 1000-token prompt, and a training batch of 2 x 1024; the gated
+# norm's backward at its d_inner on those rows
+ZAMBA_SSD = (112, 64, 64)
+ZAMBA_SSD_CASES = (("H=112,R=4,Q=256", 4, 256),)
+ZAMBA_SSD_BWD_CASES = (("H=112,R=8,Q=256", 8, 256),)
+ZAMBA_GATED_BWD_SHAPE = (2048, 7168)
+# flash forward at qwen1.5-4b's heads (MHA, H = K = 20) and qwen3-moe's
+# (H = 32, K = 4), hd 128, on a 995-token prompt
+NEW_FLASH_HEADS = ((20, 20), (32, 4))
 # the times of the two backward kernels before their redesign on the
 # tensor cores and for bandwidth, at their main shapes (PERF.md section
 # 6, on an H100 80GB HBM3 at 700 W), printed beside this run's: a
@@ -234,8 +274,10 @@ F32_PROBE_ATOL = 1e-3           # f32 logits: f32 sums in another order
 # (tools/torch_probe_noise.py).  Its probe holds both bf16 paths to the
 # f32 plain path instead: the kernel path may be at most PROBE_ATOL
 # farther from it than the plain path is, and in f32 the kernel path
-# must agree with the plain path within F32_PROBE_ATOL.
-F32_ANCHORED_PROBE = ("mamba2-1.3b",)
+# must agree with the plain path within F32_PROBE_ATOL.  zamba2-7b's 81
+# SSM layers are held the same way (its bf16 kernel and plain paths read
+# 0.238 apart, each about 0.27 from f32, on an H100 80GB HBM3 at 700 W).
+F32_ANCHORED_PROBE = ("mamba2-1.3b", "zamba2-7b")
 # phase 8 (and 10 for mamba).  (a) f32 gradients, kernel path vs plain
 # path, per param: max |diff| <= TRAIN_F32_TOL * max |g| (f32 sums in
 # another order, 28 or 48 layers deep).  (b) bf16 gradients carry bf16's
@@ -495,8 +537,11 @@ def phase_kernels():
                     qt, kt, vt, is_causal=True, enable_gqa=True)
         return call
 
-    H, K, hd = 12, 2, 128                       # qwen2-1.5b's heads
-    for S in FLASH_SEQS:
+    # qwen2-1.5b's heads (H=12, K=2) at every length, then phases 12 and
+    # 14's heads on the probe's length
+    hd = 128
+    for S, H, K in ([(S, 12, 2) for S in FLASH_SEQS]
+                    + [(PROBE_LEN, H, K) for H, K in NEW_FLASH_HEADS]):
         for dtype in ("bfloat16", "float32"):
             dt = getattr(torch, dtype)
             q = torch.randn(1, S, H, hd, generator=gen, device="cuda").to(dt)
@@ -506,7 +551,8 @@ def phase_kernels():
             want = ref.flash_attention_ref(q, k, v, causal=True)
             torch.cuda.synchronize()
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            record("flash_attention", f"S={S}", dtype, got, want,
+            shape = f"S={S}" + ("" if H == 12 else f",H={H},K={K}")
+            record("flash_attention", shape, dtype, got, want,
                    lambda: fa.flash_attention(q, k, v, causal=True),
                    lambda: ref.flash_attention_ref(q, k, v, True),
                    {name: sdpa(qt, kt, vt, name) for name in SDPA_BACKENDS},
@@ -623,11 +669,13 @@ def phase_kernels():
             print_launches("kernel", times)
             print_launches("autograd", lib_times)
 
-    # the gated norm's backward at mamba2-1.3b's training rows.  Bytes: x,
-    # z, dy read once, w read once, dx, dz and dw written once.  Library:
-    # autograd of x * F.silu(z) and F.rms_norm, less their forward.
-    rows, d = GATED_BWD_SHAPE
-    for dtype in ("bfloat16", "float32"):
+    # the gated norm's backward at mamba2-1.3b's training rows, and at
+    # zamba2-7b's d_inner.  Bytes: x, z, dy read once, w read once, dx, dz
+    # and dw written once.  Library: autograd of x * F.silu(z) and
+    # F.rms_norm, less their forward.
+    for (rows, d), dtype in ((shape, dtype) for shape in (
+            GATED_BWD_SHAPE, ZAMBA_GATED_BWD_SHAPE)
+            for dtype in ("bfloat16", "float32")):
         dt = getattr(torch, dtype)
         x = torch.randn(rows, d, generator=gen, device="cuda").to(dt)
         z = (2 * torch.randn(rows, d, generator=gen, device="cuda")).to(dt)
@@ -682,8 +730,9 @@ def phase_kernels():
     # add and division, the product, then the norm's 4).  Library: the
     # same function as PyTorch calls, the add or the gate separate from
     # F.rms_norm (no one call fuses them).
-    for kind, dims in (("add_rmsnorm", ADD_NORM_DIMS),
-                       ("gated_rmsnorm", (GATED_NORM_DIM,))):
+    for kind, dims in (("add_rmsnorm", ADD_NORM_DIMS + NEW_ADD_NORM_DIMS),
+                       ("gated_rmsnorm", (GATED_NORM_DIM,
+                                          NEW_GATED_NORM_DIM))):
         for d in dims:
             for rows in FUSED_ROWS:
                 for dtype in ("bfloat16", "float32"):
@@ -719,15 +768,15 @@ def phase_kernels():
                                "x + r; F.rms_norm" if kind == "add_rmsnorm"
                                else "x * F.silu(z); F.rms_norm"))
 
-    # SSD at mamba2-1.3b's heads, f32 as on the model path, with B and C
-    # shared by the heads through a head stride of 0 as ops.ssd_chunked
-    # passes them.  No one PyTorch call computes this function, so its
-    # library time is null.
-    H, P, N = 64, 64, 128
-
+    # SSD at mamba2-1.3b's heads, then zamba2-7b's, f32 as on the model
+    # path, with B and C shared by the heads through a head stride of 0 as
+    # ops.ssd_chunked passes them.  No one PyTorch call computes this
+    # function, so its library time is null.
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda")
-    for label, R, Q in SSD_CASES:
+    for (H, P, N), label, R, Q in (
+            [((64, 64, 128), *c) for c in SSD_CASES]
+            + [(ZAMBA_SSD, *c) for c in ZAMBA_SSD_CASES]):
         x = randn(R, H, Q, P)
         dt = F.softplus(randn(R, H, Q))
         A = -torch.exp(randn(H))
@@ -758,7 +807,9 @@ def phase_kernels():
     # forward's, so that rate bounds it; the f32 CUDA-core bound stands
     # beside it.  Every output within SSD_BWD_TOL of its max |value|.  No
     # one PyTorch call computes this function.
-    for label, R, Q, shared in SSD_BWD_CASES:
+    for (H, P, N), label, R, Q, shared in (
+            [((64, 64, 128), *c) for c in SSD_BWD_CASES]
+            + [(ZAMBA_SSD, *c, True) for c in ZAMBA_SSD_BWD_CASES]):
         x = randn(R, H, Q, P)
         dt = F.softplus(randn(R, H, Q))
         A = -torch.exp(randn(H))
@@ -877,13 +928,48 @@ def _greedy(api, cfg, params, prompt, n_new):
     return toks, gaps
 
 
-# the kernels each served model's path must launch
-PATH_KERNELS = {"qwen2-1.5b": ("flash_attention", "rmsnorm", "add_rmsnorm"),
-                "mamba2-1.3b": ("ssd_chunk_kernel", "rmsnorm", "add_rmsnorm",
-                                "gated_rmsnorm")}
+def serve_launches(cfg, prefills: int, steps: int) -> dict:
+    """{kernel: launches} of a serving run of ``prefills`` prefills and
+    ``steps`` decode steps of a model of ``cfg`` on the kernel path.  A
+    forward's first norm is plain and each later one has the residual
+    add fused in; a prefill normalises only its last row at the end, with
+    the plain kernel, where the SSM and hybrid models add first (the
+    transformer's fused ln_f runs over every row).  Prefills run flash
+    (where selected) and the SSD chunk a layer; decode steps attend by
+    einsum and step the SSM state without the chunk kernel; the gated norm
+    runs in both."""
+    from repro_torch.kernels import ops
+    L = cfg.num_layers
+    flash = cfg.attn_impl == "flash"
+    if cfg.family in ("ssm", "hybrid"):
+        G = L // cfg.attn_every if cfg.family == "hybrid" else 0
+        pre = {"ssd_chunk_kernel": L, "gated_rmsnorm": L, "rmsnorm": 2,
+               "add_rmsnorm": L - 1 + 2 * G, "flash_attention": G * flash}
+        dec = {"gated_rmsnorm": L, "rmsnorm": 1, "add_rmsnorm": L + 2 * G}
+    else:
+        pre = {"rmsnorm": 1, "add_rmsnorm": 2 * L,
+               "flash_attention": L * flash}
+        dec = {"rmsnorm": 1, "add_rmsnorm": 2 * L}
+    return {k: prefills * pre.get(k, 0) + steps * dec.get(k, 0)
+            for k in ops.launch_counts()}
 
 
-def phase_serve(arch: str, phase: int):
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def phase_serve(arch: str, phase: int, backward_len: int = 64,
+                probe: bool = True):
+    """Serve ``arch`` at full width, bf16, with phase 3's traffic, the
+    kernels' launch counters read around the run (``serve_launches``).
+    Before it: ``backward_check`` at batch 1 x ``backward_len`` (None:
+    none), and, with ``probe``, the kernel-vs-plain prefill probe, held
+    to PROBE_ATOL or, for F32_ANCHORED_PROBE, to the f32 plain path
+    (``probe_against_f32``)."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -894,7 +980,7 @@ def phase_serve(arch: str, phase: int):
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()    # what earlier phases left
     cfg = get_config(arch)
-    check(cfg.dtype == "bfloat16" and (cfg.family == "ssm"
+    check(cfg.dtype == "bfloat16" and (cfg.family in ("ssm", "hybrid")
                                        or cfg.attn_impl == "flash"),
           f"unexpected config {cfg}")
     t0 = time.perf_counter()
@@ -902,32 +988,43 @@ def phase_serve(arch: str, phase: int):
     torch.cuda.synchronize()
     n_params = api.param_count(params)
     check(n_params == cfg.param_count(), "param count")
+    init_s = time.perf_counter() - t0
     print(f"  init {n_params:,} params ({cfg.num_layers} layers, d="
-          f"{cfg.d_model}, V={cfg.vocab_size}) in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{cfg.d_model}, V={cfg.vocab_size}) in {init_s:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card")
 
     # the backward check draws from its own generator, so the probe and
     # the traffic below stay the ones earlier runs measured
-    grad_row = backward_check(api, cfg, params, np.random.default_rng(1))
+    grad_row = (None if backward_len is None else backward_check(
+        api, cfg, params, np.random.default_rng(1), backward_len))
     rng = np.random.default_rng(0)
-    probe = torch.as_tensor(rng.integers(0, cfg.vocab_size, PROBE_LEN),
-                            device="cuda")[None]
-    outs = {}
-    for label, c in (("kernels", cfg), ("plain", cfg.replace(use_kernels=False))):
-        cache = api.init_cache(c, 1, PROBE_LEN)
-        outs[label], _ = api.prefill(params, c, cache, {"tokens": probe})
-    diff = (outs["kernels"] - outs["plain"]).abs().max().item()
-    top = [int(outs[k][0, :cfg.vocab_size].argmax()) for k in outs]
-    print(f"  prefill logits (S={PROBE_LEN}): kernels vs plain max|diff| "
-          f"{diff:.4e} (atol {PROBE_ATOL}), top-1 {top[0]} vs {top[1]}")
-    check(bool(torch.isfinite(outs["kernels"][0, :cfg.vocab_size]).all()),
-          "non-finite prefill logits")
-    if arch in F32_ANCHORED_PROBE:
-        probe_row = probe_against_f32(api, cfg, params, probe, outs)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, PROBE_LEN),
+                             device="cuda")[None]
+    if not probe:
+        print("  no bf16 kernel-vs-plain probe (its own phase holds the "
+              "paths in f32)")
+        probe_row = None
     else:
-        check(diff <= PROBE_ATOL and top[0] == top[1],
-              "kernel-path prefill disagrees with the plain path")
-        probe_row = {"max_abs_diff": diff}
+        outs = {}
+        for label, c in (("kernels", cfg),
+                         ("plain", cfg.replace(use_kernels=False))):
+            cache = api.init_cache(c, 1, PROBE_LEN)
+            outs[label], _ = api.prefill(params, c, cache,
+                                         {"tokens": tokens})
+        diff = (outs["kernels"] - outs["plain"]).abs().max().item()
+        top = [int(outs[k][0, :cfg.vocab_size].argmax()) for k in outs]
+        print(f"  prefill logits (S={PROBE_LEN}): kernels vs plain "
+              f"max|diff| {diff:.4e} (atol {PROBE_ATOL}), top-1 {top[0]} "
+              f"vs {top[1]}")
+        check(bool(torch.isfinite(outs["kernels"][0, :cfg.vocab_size])
+                   .all()), "non-finite prefill logits")
+        if arch in F32_ANCHORED_PROBE:
+            probe_row = probe_against_f32(api, cfg, params, tokens, outs)
+        else:
+            check(diff <= PROBE_ATOL and top[0] == top[1],
+                  "kernel-path prefill disagrees with the plain path")
+            probe_row = {"max_abs_diff": diff}
+        del outs
 
     eng = Engine(cfg, params, slots=4, max_seq=2048, device="cuda")
     lens = rng.integers(64, 1001, 16)
@@ -965,19 +1062,15 @@ def phase_serve(arch: str, phase: int):
           "not every request got its 32 tokens")
     check(all(0 <= t < cfg.vocab_size for r in done for t in r.output),
           "token outside the vocabulary")
-    for name in PATH_KERNELS[arch]:
-        check(launches[name] > 0,
-              f"kernel {name} was never launched on the {arch} path")
-    for name in BACKWARD_KERNELS:
-        check(launches[name] == 0, f"serving {arch} launched {name}")
+    want = serve_launches(cfg, prefills, eng.steps)
+    check(launches == want, f"serving {arch} launched {launches}, expected "
+                            f"{want} ({prefills} prefills, {eng.steps} "
+                            f"decode steps)")
     check(not any(lse_flags), f"serving {arch} stored a log-sum-exp "
                               f"({sum(lse_flags)} of {len(lse_flags)} flash "
                               f"launches)")
-    if cfg.family == "ssm":
-        check(launches["ssd_chunk_kernel"] == cfg.num_layers * prefills,
-              f"ssd_chunk_kernel launched {launches['ssd_chunk_kernel']} "
-              f"times, not once per layer of {prefills} prefills")
-    serve = {"arch": arch, "probe": probe_row, "backward": grad_row,
+    serve = {"arch": arch, "card": card(), "init_s": init_s,
+             "probe": probe_row, "backward": grad_row,
              "requests": len(done),
              "new_tokens": toks,
              "wall_s": wall, "tokens_per_s": toks / wall, "peak_gib": peak,
@@ -989,6 +1082,11 @@ def phase_serve(arch: str, phase: int):
     print(f"  device idle share of a decode step: {serve['idle_share']:.3f} "
           f"({busy:.3f} ms busy of the {steps['decode_step_ms_median']:.1f} "
           f"ms median step)")
+    print(f"  {arch}: {toks / wall:.1f} tok/s, decode step "
+          f"{steps['decode_step_ms_median']:.2f} ms, device busy "
+          f"{busy:.3f} ms, idle share {serve['idle_share']:.3f}, "
+          f"{serve['decode_profile']['kernel_launches_per_step']:.0f} "
+          f"launches a decode step, peak {peak:.2f} GiB; {serve['card']}")
     check(busy > 0, "the profiler saw no device time in decode steps")
     del params, eng
     torch.cuda.empty_cache()
@@ -1002,15 +1100,20 @@ BACKWARD_KERNELS = ("flash_attention_bwd", "rmsnorm_bwd", "add_rmsnorm_bwd",
 
 def step_launches(cfg) -> dict:
     """The kernel launches of one training step (forward and backward) of
-    a model of ``cfg``: a layer's mixer (flash attention, or the SSD chunk
-    and the gated norm), its pre-norms with the residual add fused in (the
-    first layer's is plain), and the final norm."""
+    a model of ``cfg``: a layer's mixer (flash attention where selected,
+    or the SSD chunk and the gated norm; the hybrid's shared block's
+    attention once an application), its pre-norms with the residual add
+    fused in (the first layer's is plain), and the final norm."""
     L = cfg.num_layers
-    if cfg.family == "ssm":
+    flash = cfg.attn_impl == "flash"
+    if cfg.family in ("ssm", "hybrid"):
+        G = L // cfg.attn_every if cfg.family == "hybrid" else 0
         fwd = {"ssd_chunk_kernel": L, "gated_rmsnorm": L, "rmsnorm": 1,
-               "add_rmsnorm": L}
+               "add_rmsnorm": L + 2 * G, "flash_attention": G * flash}
     else:
-        fwd = {"flash_attention": L, "rmsnorm": 1, "add_rmsnorm": 2 * L}
+        fwd = {"flash_attention": L * flash, "rmsnorm": 1,
+               "add_rmsnorm": 2 * L}
+    fwd = {k: v for k, v in fwd.items() if v}
     bwd = {k.replace("_kernel", "") + "_bwd": v for k, v in fwd.items()}
     return {**fwd, **bwd}
 
@@ -1073,17 +1176,17 @@ def lse_requests():
         fa.flash_attention = real
 
 
-def backward_check(api, cfg, params, rng):
-    """With the params requiring grad, ``api.loss(...).backward()`` on
-    the kernel path runs the backward kernels (``step_launches``: qwen's
-    flash once a layer and residual norm twice, mamba's SSD, gated norm
-    and residual norm once a layer; the plain norm once) and gives every
-    param a finite gradient.  The distance of each param's gradient to
-    the bf16 plain path's is printed; phases 8 and 10 hold gradients to a
-    reference."""
+def backward_check(api, cfg, params, rng, seq: int = 64):
+    """With the params requiring grad, ``api.loss(...).backward()`` at
+    batch 1 x ``seq`` on the kernel path runs the backward kernels
+    (``step_launches``: qwen's flash once a layer and residual norm
+    twice, mamba's SSD, gated norm and residual norm once a layer; the
+    plain norm once) and gives every param a finite gradient.  The
+    distance of each param's gradient to the bf16 plain path's is
+    printed; phases 8 and 10 hold gradients to a reference."""
     import torch
     from repro_torch.kernels import ops
-    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 65)),
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, seq + 1)),
                            device="cuda")
     batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
     leaves = _float_leaves(params)
@@ -1116,10 +1219,11 @@ def backward_check(api, cfg, params, rng):
     rel = max(((a.float() - b.float()).abs().max()
                / b.float().abs().max().clamp(min=1e-30)).item()
               for a, b in zip(grads["kernels"], grads["plain"]))
-    print(f"  loss().backward() on the kernel path: launches {got}, every "
-          f"gradient finite; largest per-param distance to the bf16 plain "
-          f"path {rel:.4e} of that param's max |g|")
-    return {"launches": got, "max_rel_to_plain_bf16": rel}
+    print(f"  loss().backward() on the kernel path (batch 1 x {seq}): "
+          f"launches {got}, every gradient finite; largest per-param "
+          f"distance to the bf16 plain path {rel:.4e} of that param's max "
+          f"|g|")
+    return {"launches": got, "batch": [1, seq], "max_rel_to_plain_bf16": rel}
 
 
 def probe_against_f32(api, cfg, params, probe, outs):
@@ -1189,13 +1293,17 @@ def profile_decode(eng, rng, steps: int = 5):
     return out
 
 
-def phase_f32(arch: str, phase: int):
+def phase_f32(arch: str, phase: int, layers: int = None):
+    """Greedy tokens of the f32 kernel and plain paths, identical, on two
+    prompts; at full width and depth, or ``layers`` layers deep."""
     import numpy as np
     import torch
     from repro_torch.models import api, get_config
-    print(f"== phase {phase}: {arch} at full width in f32, kernel path vs "
-          f"plain path", flush=True)
     cfg = get_config(arch).replace(dtype="float32")
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    print(f"== phase {phase}: {arch} at full width in f32, "
+          f"{cfg.num_layers} layers, kernel path vs plain path", flush=True)
     params = api.init(0, cfg, device="cuda")
     rng = np.random.default_rng(1)
     for i, n in enumerate((211, 640)):
@@ -1753,13 +1861,15 @@ def loop_check(cfg, steps: int, ckpt_every: int, fault_step: int,
     return out, got
 
 
-def trace_check(cfg, train_step_ms: float, want_mm=None):
+def trace_check(cfg, train_step_ms, want_mm=None):
     """One whole train step of ``cfg`` at the training shape traced on
     the meta device (``repro_torch.core.analyze``): one trace op per
     kernel call of a step (``step_launches``) and, where ``want_mm`` is
     given, matrix-product FLOPs equal to it; the step SIMULATED on one
     chip with the reference's v5e ChipSpec and with the H100's datasheet,
-    beside ``train_step_ms``, the measured step."""
+    beside ``train_step_ms``, the measured step, where there is one
+    (None: a model whose train step no one card holds, priced on one chip
+    as the step's work, not as a deployment)."""
     import torch
     from repro_torch.core import (ChipSpec, SystemSpec, analyze, build_terms,
                                   cost_analysis, matmul_flops, simulate)
@@ -1800,13 +1910,20 @@ def trace_check(cfg, train_step_ms: float, want_mm=None):
               f"{terms.t_memory * 1e3:.3f} ms, {terms.dominant}-bound)")
     check(all(v["sim_step_ms"] > 0 for v in sims.values()),
           f"simulated steps {sims}")
-    ratio = sims["h100-sxm"]["sim_step_ms"] / train_step_ms
-    print(f"  traced one train step on meta in {trace_s:.2f} s: "
+    print(f"  traced one train step of {cfg.name} (batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}) on meta in {trace_s:.2f} s: "
           f"{len(cost.trace)} ops, {cost.flops:.4g} FLOPs "
-          f"({matmul_flops(cost):.4g} in matrix products), "
-          f"{cost.hbm_bytes:.4g} HBM bytes, kernel ops {traced_kernels}")
-    print(f"  simulated h100-sxm step / the measured median step "
-          f"({train_step_ms:.1f} ms): {ratio:.3f}")
+          f"({matmul_flops(cost):.4g} in matrix products"
+          + ("" if want_mm is None else f", the config's count {want_mm:.4g}")
+          + f"), {cost.hbm_bytes:.4g} HBM bytes, kernel ops {traced_kernels}")
+    if train_step_ms is None:
+        ratio = None
+        print("  (the SIMULATED step is this step's work priced on one "
+              "chip, not a deployment: the model fits no one card)")
+    else:
+        ratio = sims["h100-sxm"]["sim_step_ms"] / train_step_ms
+        print(f"  simulated h100-sxm step / the measured median step "
+              f"({train_step_ms:.1f} ms): {ratio:.3f}")
     return {"trace_s": trace_s, "trace_ops": len(cost.trace),
             "kernel_ops": traced_kernels, "flops": cost.flops,
             "matmul_flops": matmul_flops(cost), "hbm_bytes": cost.hbm_bytes,
@@ -1833,12 +1950,9 @@ def phase_loop(train_step_ms: float):
     # (b) the cost front end.  Matrix products: forward, dX and dW; then
     # the chunked loss's checkpointed chunks make their logits again in
     # the backward: one more unembedding forward
-    d = cfg.d_model
-    mm_params = cfg.num_layers * (d * (2 * cfg.q_dim + 2 * cfg.kv_dim)
-                                  + 3 * d * cfg.d_ff) + d * cfg.padded_vocab
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    want_mm = 3 * 2 * mm_params * tokens + 2 * tokens * d * cfg.padded_vocab
-    analysis = trace_check(cfg, train_step_ms, want_mm)
+    from repro_torch.models import api
+    analysis = trace_check(cfg, train_step_ms, api.train_step_matmul_flops(
+        cfg, TRAIN_BATCH, TRAIN_SEQ))
 
     # (c) the quickstart on the card
     spec = importlib.util.spec_from_file_location(
@@ -2230,6 +2344,237 @@ def phase_sim(serve_tokens_per_s: float, mgmark_sim: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 12-14: the dense configs, the hybrid and the MoE families
+# ---------------------------------------------------------------------------
+# at each phase's start, what earlier phases may leave on the card
+LEFT_OVER_LIMIT_GIB = 1.0
+NEW_DENSE = ("qwen1.5-4b", "internlm2-20b")
+# phase 4's f32 check at full width: whole for qwen1.5-4b (15.8 GB); at
+# internlm2-20b's 48 layers 79 GB in f32 fit no card, so 16 of them
+# (29.5 GB)
+F32_LAYERS = {"internlm2-20b": 16}
+BIG_DENSE = "qwen1.5-110b"
+HYBRID_ARCH = "zamba2-7b"
+HYBRID_BACKWARD_LEN = 256       # zamba2-7b's kernel-path backward, batch 1
+MOE_ARCH, BIG_MOE = "qwen3-moe-30b-a3b", "dbrx-132b"
+# qwen3-moe's f32 kernel-vs-plain check at full width, 8 of its 48 layers
+# (22.5 GB), on a 211-token prompt (routed globally) and a 512-token one
+# (a multiple of its 256 groups: grouped dispatch), 16 greedy tokens
+MOE_F32_LAYERS = 8
+MOE_F32_PROMPTS = (211, 512)
+# the smokes trained on the card: 20 AdamW steps through
+# launch.train.run on the kernels, batch 8 x 64 (the launcher's
+# defaults), lr 3e-3: at the launcher's 1e-3 the zamba2 smoke's loss
+# moves too little in 20 steps to show a fall (on the CPU: mean of the
+# first 5 steps 5.8858, of the last 5 5.8947)
+SMOKE_TRAIN = ("zamba2-7b-smoke", "qwen3-moe-30b-a3b-smoke",
+               "dbrx-132b-smoke")
+SMOKE_BATCH, SMOKE_SEQ, SMOKE_LR = 8, 64, 3e-3
+
+
+def fresh_card(phase: int) -> float:
+    """Free what earlier phases left and check that it is little: the
+    GiB still allocated."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2 ** 30
+    print(f"  {left:.3f} GiB allocated at phase {phase}'s start", flush=True)
+    check(left <= LEFT_OVER_LIMIT_GIB, f"phase {phase} starts with "
+          f"{left:.2f} GiB left on the card by earlier phases")
+    return left
+
+
+def smoke_train(arch: str) -> tuple:
+    """20 AdamW steps of a smoke config through ``launch.train.run`` on
+    the kernels: finite, falling loss, the kernels launched as many times
+    as ``step_launches`` says.  Returns (numbers, launches)."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import get_config
+    from repro_torch.train import optim
+    from repro_torch.train.data import DataConfig
+    cfg = get_config(arch)
+    opt_cfg = optim.OptConfig(lr=SMOKE_LR, total_steps=TRAIN_STEPS,
+                              warmup_steps=max(1, TRAIN_STEPS // 10))
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=SMOKE_SEQ,
+                          global_batch=SMOKE_BATCH)
+    ops.reset_launches()
+    _, records = launch_train.run(cfg, data_cfg, opt_cfg, TRAIN_STEPS,
+                                  device="cuda", log=lambda line: None)
+    launches = ops.launch_counts()
+    want = {k: TRAIN_STEPS * step_launches(cfg).get(k, 0) for k in launches}
+    check(launches == want, f"{arch}: {TRAIN_STEPS} steps launched "
+                            f"{launches}, expected {want}")
+    losses = [r["loss"] for r in records]
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(all(np.isfinite(losses)) and last < first,
+          f"{arch}: the loss did not fall (or is not finite): {losses}")
+    step_ms = statistics.median(r["step_ms"] for r in records[1:])
+    print(f"  {arch}: {TRAIN_STEPS} AdamW steps, batch {SMOKE_BATCH} x "
+          f"{SMOKE_SEQ}, loss {losses[0]:.4f} -> {losses[-1]:.4f} (first 5 "
+          f"{first:.4f}, last 5 {last:.4f}), median step {step_ms:.1f} ms; "
+          f"launches {({k: v for k, v in launches.items() if v})}")
+    return ({"arch": arch, "losses": losses, "loss_first5": first,
+             "loss_last5": last, "step_ms_median": step_ms,
+             "launches": launches}, launches)
+
+
+def meta_trace(arch: str) -> dict:
+    """``trace_check`` of a full config that trains on no one card: the
+    train step at batch TRAIN_BATCH x TRAIN_SEQ on meta, its
+    matrix-product FLOPs held to ``api.train_step_matmul_flops``."""
+    from repro_torch.models import api, get_config
+    cfg = get_config(arch)
+    return trace_check(cfg, None, api.train_step_matmul_flops(
+        cfg, TRAIN_BATCH, TRAIN_SEQ))
+
+
+def phase_dense_configs():
+    """Phase 12.  Returns (numbers, {path: launches})."""
+    t0 = time.perf_counter()
+    print("== phase 12: the dense configs qwen1.5-4b, internlm2-20b (served) "
+          "and qwen1.5-110b (traced on meta)", flush=True)
+    out, launches = {"serve": {}}, {}
+    for arch in NEW_DENSE:
+        fresh_card(12)
+        out["serve"][arch] = phase_serve(arch, 12, backward_len=None)
+        launches[arch] = out["serve"][arch]["launches"]
+        fresh_card(12)
+        phase_f32(arch, 12, F32_LAYERS.get(arch))
+    out["f32_layers"] = {a: F32_LAYERS.get(a, "all") for a in NEW_DENSE}
+    print(f"== phase 12 (b): {BIG_DENSE}'s train step on meta", flush=True)
+    out["analysis"] = meta_trace(BIG_DENSE)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 12: {out['seconds']:.1f} s", flush=True)
+    return out, launches
+
+
+def phase_hybrid():
+    """Phase 13.  Returns (numbers, {path: launches})."""
+    t0 = time.perf_counter()
+    print(f"== phase 13: the hybrid family, {HYBRID_ARCH} at full width",
+          flush=True)
+    fresh_card(13)
+    out = {"serve": phase_serve(HYBRID_ARCH, 13, HYBRID_BACKWARD_LEN)}
+    fresh_card(13)
+    phase_f32(HYBRID_ARCH, 13)
+    print(f"== phase 13: {HYBRID_ARCH}'s train step on meta", flush=True)
+    out["analysis"] = meta_trace(HYBRID_ARCH)
+    fresh_card(13)
+    out["train_smoke"], train_launches = smoke_train("zamba2-7b-smoke")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 13: {out['seconds']:.1f} s", flush=True)
+    return out, {HYBRID_ARCH: out["serve"]["launches"],
+                 "zamba2-7b-smoke_train": train_launches}
+
+
+@contextlib.contextmanager
+def routing_log():
+    """Yields a list that records the expert indices (G, T, k) of every
+    ``moe._route`` call made inside the block, on the host."""
+    from repro_torch.models import moe
+    real, log = moe._route, []
+
+    def spy(p, x, cfg):
+        out = real(p, x, cfg)
+        log.append(out[0].cpu())
+        return out
+    moe._route = spy
+    try:
+        yield log
+    finally:
+        moe._route = real
+
+
+def moe_f32_check() -> dict:
+    """Phase 14 (b): qwen3-moe at full width, MOE_F32_LAYERS deep, f32,
+    kernel path against plain path on each prompt of MOE_F32_PROMPTS: how
+    many (token, layer) routing choices differ; the logits of every row
+    before the first row whose routing differs held to F32_PROBE_ATOL;
+    16 greedy tokens identical."""
+    import numpy as np
+    import torch
+    from repro_torch.models import api, get_config
+    cfg = get_config(MOE_ARCH).replace(dtype="float32",
+                                       num_layers=MOE_F32_LAYERS)
+    print(f"== phase 14 (b): {MOE_ARCH} in f32, {cfg.num_layers} of 48 "
+          f"layers, kernel path vs plain path", flush=True)
+    params = api.init(0, cfg, device="cuda")
+    gib = torch.cuda.memory_allocated() / 2 ** 30
+    rng = np.random.default_rng(1)
+    rows = []
+    V = cfg.vocab_size
+    for n in MOE_F32_PROMPTS:
+        prompt = torch.as_tensor(rng.integers(0, V, n), device="cuda")
+        logits, routes = {}, {}
+        for label, c in (("kernels", cfg),
+                         ("plain", cfg.replace(use_kernels=False))):
+            with routing_log() as log:
+                logits[label], _ = api.forward(params, c,
+                                               {"tokens": prompt[None]})
+            # one (T, k) routing per layer (grouped: (G, T/G, k) -> (T, k))
+            routes[label] = torch.stack([r.reshape(-1, r.shape[-1])
+                                         for r in log])
+        differ = (routes["kernels"] != routes["plain"]).any(-1)  # (L, T)
+        n_differ = int(differ.sum())
+        first = (int(differ.any(0).nonzero()[0]) if n_differ else n)
+        diff = (logits["kernels"][0, :first, :V]
+                - logits["plain"][0, :first, :V]).abs().max().item() \
+            if first else 0.0
+        toks = {}
+        gaps = None
+        for label, c in (("kernels", cfg),
+                         ("plain", cfg.replace(use_kernels=False))):
+            toks[label], g = _greedy(api, c, params, prompt, 16)
+            gaps = gaps or g
+        grouped = n % cfg.moe_groups == 0
+        row = {"prompt": n, "grouped": grouped, "layers": cfg.num_layers,
+               "routing_choices": cfg.num_layers * n,
+               "routing_choices_differing": n_differ,
+               "rows_held": first, "max_abs_diff_held_rows": diff,
+               "greedy_identical": toks["kernels"] == toks["plain"],
+               "smallest_top2_gap": min(gaps)}
+        print(f"  prompt {n} ({'grouped' if grouped else 'global'} "
+              f"dispatch): {n_differ} of {cfg.num_layers * n} (token, layer) "
+              f"routing choices differ; logits of rows [0, {first}) within "
+              f"{diff:.3e} (atol {F32_PROBE_ATOL}); greedy tokens identical: "
+              f"{row['greedy_identical']} (smallest top-2 gap "
+              f"{min(gaps):.3e})")
+        check(diff <= F32_PROBE_ATOL, f"{MOE_ARCH} f32 kernel-path logits "
+              f"disagree with the plain path where the routing agrees")
+        check(row["greedy_identical"], f"{MOE_ARCH} f32 greedy tokens part: "
+              f"{toks}")
+        rows.append(row)
+    del params
+    return {"gib": gib, "prompts": rows}
+
+
+def phase_moe():
+    """Phase 14.  Returns (numbers, {path: launches})."""
+    t0 = time.perf_counter()
+    print(f"== phase 14: the MoE family, {MOE_ARCH} at full width (served) "
+          f"and {BIG_MOE} (traced on meta)", flush=True)
+    fresh_card(14)
+    out = {"serve": phase_serve(MOE_ARCH, 14, backward_len=None,
+                                probe=False)}
+    fresh_card(14)
+    out["f32"] = moe_f32_check()
+    print(f"== phase 14 (c): {BIG_MOE}'s train step on meta", flush=True)
+    out["analysis"] = meta_trace(BIG_MOE)
+    launches = {MOE_ARCH: out["serve"]["launches"]}
+    out["train_smoke"] = {}
+    for arch in SMOKE_TRAIN[1:]:
+        fresh_card(14)
+        out["train_smoke"][arch], launches[f"{arch}_train"] = \
+            smoke_train(arch)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 14: {out['seconds']:.1f} s", flush=True)
+    return out, launches
+
+
 def _paths(tree, prefix=()):
     """The key paths of a nested dict, in ``optim.leaves`` order."""
     if isinstance(tree, dict):
@@ -2264,6 +2609,10 @@ def main() -> int:
     sim = phase_sim(serve["qwen2-1.5b"]["tokens_per_s"],
                     {f"{r['name']}/{r['mode']}": r["sim_ms"]
                      for r in mgmark_rows})
+    dense_configs, dense_launches = phase_dense_configs()
+    hybrid, hybrid_launches = phase_hybrid()
+    moe, moe_launches = phase_moe()
+    new_paths = {**dense_launches, **hybrid_launches, **moe_launches}
     # (shape, dtype) of each kernel's row in the kernels line
     H, W, K, _ = STENCIL_CASES[0]
     L, size, dist, _, _ = BITONIC_CASES[0]
@@ -2327,6 +2676,8 @@ def main() -> int:
         by_path["loop"] = loop_launches.get(kname, 0)
         by_path["mamba_train"] = mamba_train_launches[kname]
         by_path["mamba_loop"] = mamba_loop_launches.get(kname, 0)
+        by_path.update({path: run.get(kname, 0)
+                        for path, run in new_paths.items()})
         kernels.append({
             "name": kname, "route": "cuda", "source": source[kname][0],
             "replaces": source[kname][1], "launches": sum(by_path.values()),
@@ -2352,12 +2703,10 @@ def main() -> int:
         {"device": name, "kernels": kernels, "serve": serve,
          "mgmark": mgmark_rows, "mgmark_simulated": mgmark_sim,
          "train": train, **loop_phase, "mamba": mamba, "sim": sim,
-         "seconds": time.perf_counter() - t0},
+         "dense_configs": dense_configs, "hybrid": hybrid, "moe": moe,
+         "card": card(), "seconds": time.perf_counter() - t0},
         indent=1))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = card()
     print(f"  total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,5 +1,7 @@
 """Ported architecture configs (one module per arch, as in
 ``repro.configs``).  Importing this package populates the registry; use
 ``repro_torch.models.get_config(name)`` or the ``--arch`` flag of
-``repro_torch.launch.serve``."""
-from . import mamba2_1_3b, qwen2_1_5b  # noqa: F401
+``repro_torch.launch.serve`` / ``repro_torch.launch.train``."""
+from . import (dbrx_132b, internlm2_20b, mamba2_1_3b,  # noqa: F401
+               qwen1_5_4b, qwen1_5_110b, qwen2_1_5b, qwen3_moe_30b,
+               zamba2_7b)

@@ -1,6 +1,6 @@
-"""Unified model facade (port of ``repro/models/api.py``) for the dense
-family (``transformer``) and the SSM family (``mamba_lm``).  The same
-entry points as the reference:
+"""Unified model facade (port of ``repro/models/api.py``) for the dense and
+MoE families (``transformer``), the SSM family (``mamba_lm``) and the
+hybrid family (``hybrid``).  The same entry points as the reference:
 
     init(seed, cfg, device)                     -> params
     loss(params, cfg, batch)                    -> scalar f32
@@ -11,15 +11,16 @@ entry points as the reference:
 
 ``init`` and ``init_cache`` place their tensors on ``device`` ("cuda"
 unless the caller asks for the CPU); the others run where their inputs
-lie.  The other families (moe, hybrid, encdec, vlm) raise
-NotImplementedError until their slices are ported.
+lie.  The enc-dec and VLM families raise NotImplementedError until
+their slice is ported.
 """
 from __future__ import annotations
 
-from . import mamba_lm, transformer
+from . import hybrid, mamba_lm, moe, transformer
 from .base import ModelConfig
 
-_FAMILY = {"dense": transformer, "ssm": mamba_lm}
+_FAMILY = {"dense": transformer, "moe": transformer, "ssm": mamba_lm,
+           "hybrid": hybrid}
 
 
 def module_for(cfg: ModelConfig):
@@ -60,3 +61,54 @@ def param_count(params) -> int:
     if isinstance(params, dict):
         return sum(param_count(v) for v in params.values())
     return params.numel()
+
+
+def train_step_matmul_flops(cfg: ModelConfig, batch: int, seq: int) -> int:
+    """FLOPs of the matrix products (aten ``mm``/``bmm``, not the
+    kernels') of one train step of ``cfg`` at ``batch`` x ``seq`` tokens:
+    each forward product and its two backward ones (dX and dW).  This is
+    the count ``core.hlo.matmul_flops`` of a traced step must equal.
+
+    Per layer: the projections and the MLP, or the MoE's f32 router and
+    its experts over every one of the E x C capacity slots (dump slots
+    included, grouped capacities where ``moe.moe_ffn`` groups); the
+    materialised QK^T and P V where attention is not the flash kernel
+    (``attn_impl="ref"``); an SSM layer's in and out projections and the
+    SSD's carry-in term ``y_off`` (over the chunk-padded sequence; with
+    two chunks or more, so that its state input takes a gradient).  Then
+    the unembedding, done once more in the backward where the chunked
+    loss recomputes each chunk's logits (on the sequence padded to
+    ``transformer.XENT_CHUNK``)."""
+    B, S, d, T = batch, seq, cfg.d_model, batch * seq
+    Vp = cfg.padded_vocab
+    proj = d * (2 * cfg.q_dim + 2 * cfg.kv_dim)
+    core = (0 if cfg.attn_impl == "flash" else
+            2 * 2 * B * cfg.num_heads * S * S * cfg.hd)
+    attn_block = 2 * T * (proj + 3 * d * cfg.d_ff) + core
+    if cfg.family in ("ssm", "hybrid"):
+        H, N, P = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+        Q = min(cfg.ssm_chunk, S)
+        if -(-S // Q) < 2:
+            raise ValueError(f"{S} tokens make one SSD chunk of {Q}: y_off's "
+                             f"state input takes no gradient")
+        Lp = -(-S // Q) * Q
+        ssm_layer = (2 * T * d * (2 * cfg.d_inner + 2 * cfg.ssm_groups * N
+                                  + H + cfg.d_inner)
+                     + 2 * B * Lp * H * N * P)
+        fwd = cfg.num_layers * ssm_layer + 2 * T * d * Vp
+        if cfg.family == "hybrid":
+            fwd += hybrid._gr(cfg)[0] * attn_block
+        return 3 * fwd
+    if cfg.family == "moe":
+        E, Gr = cfg.num_experts, cfg.moe_groups
+        slots = (E * Gr * moe.capacity(T // Gr, cfg)
+                 if Gr > 1 and T % Gr == 0 else E * moe.capacity(T, cfg))
+        layer = (2 * T * (proj + d * E) + core
+                 + 2 * slots * 3 * d * cfg.d_ff)
+    else:
+        layer = attn_block
+    fwd = cfg.num_layers * layer
+    if Vp * S >= transformer.XENT_CHUNK_THRESHOLD:
+        Sp = -(-S // transformer.XENT_CHUNK) * transformer.XENT_CHUNK
+        return 3 * fwd + 4 * 2 * B * Sp * d * Vp
+    return 3 * (fwd + 2 * T * d * Vp)

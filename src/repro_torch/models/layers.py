@@ -76,15 +76,31 @@ def draws(gen) -> typing.Optional[torch.Generator]:
     return None if isinstance(gen, MetaGenerator) else gen
 
 
+# a leaf whose f32 draw would take more bytes than this is drawn one
+# slice of its leading axis at a time, into the output's dtype: a stacked
+# expert or MLP leaf of a large model (qwen3-moe-30b-a3b's 38.7 GB of f32
+# for one 19.3 GB bf16 leaf) would not fit the card otherwise.  Smaller
+# leaves are drawn whole, so their values are those of earlier ports.
+WHOLE_DRAW_BYTES = 1 << 32
+
+
 def dense_init(gen: torch.Generator, shape, dtype, scale: float = None):
     """Truncated-normal (+-2 sigma) fan-in init; stacked shapes keep the
     per-slice fan-in (``shape[-2]``)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    w = torch.empty(shape, dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
-                                generator=draws(gen))
-    return (w * scale).to(dtype)
+
+    def draw(shape_):
+        w = torch.empty(shape_, dtype=torch.float32, device=gen.device)
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+                                    generator=draws(gen))
+        return (w * scale).to(dtype)
+    if gen.device.type == "meta" or 4 * math.prod(shape) <= WHOLE_DRAW_BYTES:
+        return draw(shape)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for part in out:
+        part.copy_(draw(part.shape))
+    return out
 
 
 def embed_init(gen: torch.Generator, shape, dtype):
@@ -259,6 +275,14 @@ def attention_block(p: Params, x, cfg, positions=None, causal=True,
 # --------------------------------------------------------------------------
 # MLPs
 # --------------------------------------------------------------------------
+
+def unstack(tree):
+    """The one layer of a tree stacked on a leading axis of length 1 (an
+    ``init_*(gen, cfg, 1)``), as unstacked leaves."""
+    if isinstance(tree, dict):
+        return {k: unstack(v) for k, v in tree.items()}
+    return tree.squeeze(0)
+
 
 def init_swiglu(gen: torch.Generator, cfg, n_layers: int) -> Params:
     d, f, dt, n = cfg.d_model, cfg.d_ff, cfg.torch_dtype, n_layers

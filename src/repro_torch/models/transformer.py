@@ -1,9 +1,11 @@
-"""Decoder-only transformer LM, dense family (port of
-``repro/models/transformer.py``).
+"""Decoder-only transformer LM, dense and MoE families (port of
+``repro/models/transformer.py``): qwen2-1.5b, qwen1.5-4b, qwen1.5-110b,
+internlm2-20b (dense, a SwiGLU MLP a layer) and qwen3-moe-30b-a3b,
+dbrx-132b (moe, ``moe.moe_ffn`` in the MLP's place, whose load-balancing
+term the loss adds).
 
 Layer params are stacked on a leading axis, as in the reference; the
-forward loops over layers in Python where the reference scans.  The MoE
-FFN variant is ported with the MoE/enc-dec/VLM slice.
+forward loops over layers in Python where the reference scans.
 """
 from __future__ import annotations
 
@@ -16,17 +18,16 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 
 from . import layers as L
+from . import moe as M
 from .base import ModelConfig
 
 Params = typing.Dict[str, typing.Any]
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (the MoE "
-            "FFN comes with the MoE/enc-dec/VLM slice); the port runs "
-            "dense models")
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} is no "
+                         f"decoder-only transformer (dense or moe)")
 
 
 # --------------------------------------------------------------------------
@@ -39,7 +40,7 @@ def init(seed, cfg: ModelConfig, device="cuda") -> Params:
     zero biases, unit norms.  The draws differ from the reference's
     ``jax.random`` ones; parity tests convert the reference's params
     with ``repro_torch.convert.params_from_jax`` instead."""
-    _dense_only(cfg)
+    _check_family(cfg)
     device = resolve_device(device)
     gen = L.generator(seed, device)
     dt = cfg.torch_dtype
@@ -49,8 +50,11 @@ def init(seed, cfg: ModelConfig, device="cuda") -> Params:
         "attn": L.init_attention(gen, cfg, n),
         "ln1": torch.ones((n, cfg.d_model), dtype=dt, device=device),
         "ln2": torch.ones((n, cfg.d_model), dtype=dt, device=device),
-        "mlp": L.init_swiglu(gen, cfg, n),
     }
+    if cfg.family == "moe":
+        p["layers"]["moe"] = M.init_moe(gen, cfg, n)
+    else:
+        p["layers"]["mlp"] = L.init_swiglu(gen, cfg, n)
     p["ln_f"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
     return p
 
@@ -63,40 +67,53 @@ def _add_norm(h, r, w, cfg: ModelConfig):
 # forward (train / prefill)
 # --------------------------------------------------------------------------
 # The layer loops carry each block's last residual branch ``r`` (the MLP
-# output) to the next norm, where the add h + r runs fused into the norm's
-# launch; the last one fuses into ln_f.  The values are the reference's
-# h = h + a; h = h + mlp(norm(h)).
+# or MoE output) to the next norm, where the add h + r runs fused into the
+# norm's launch; the last one fuses into ln_f.  The values are the
+# reference's h = h + a; h = h + ffn(norm(h)).
+
+def _ffn(lp: Params, x, cfg: ModelConfig):
+    """The block's FFN of the normed x (B,S,d): (y, aux), aux the MoE's
+    load-balancing term, 0.0 for a dense MLP."""
+    if "moe" not in lp:
+        return L.swiglu(lp["mlp"], x), 0.0
+    B, S, d = x.shape
+    y, aux = M.moe_ffn(lp["moe"], x.reshape(B * S, d), cfg)
+    return y.reshape(B, S, d), aux
+
 
 def _layer_fwd(lp: Params, h, r, cfg: ModelConfig, positions):
     """One pre-norm block over the whole sequence, from h and the previous
-    block's MLP output r (None before the first block).  Returns (h, this
-    block's MLP output, (k, v))."""
+    block's FFN output r (None before the first block).  Returns (h, this
+    block's FFN output, (k, v), aux)."""
     h, x = _add_norm(h, r, lp["ln1"], cfg)
     a, kv = L.attention_block(lp["attn"], x, cfg, positions=positions,
                               causal=True)
     h, x = _add_norm(h, a, lp["ln2"], cfg)
-    return h, L.swiglu(lp["mlp"], x), kv
+    y, aux = _ffn(lp, x, cfg)
+    return h, y, kv, aux
 
 
 def _hidden(p: Params, cfg: ModelConfig, tokens):
-    """Final-normed hidden states (B,S,d) and per-layer (k, v)."""
-    _dense_only(cfg)
+    """Final-normed hidden states (B,S,d), per-layer (k, v) and the sum of
+    the layers' aux terms (0.0 for a dense model)."""
+    _check_family(cfg)
     h = L.embed(p, tokens)
     positions = torch.arange(h.shape[1], device=h.device)
-    kvs, r = [], None
+    kvs, r, aux = [], None, 0.0
     for lp in L.layer_slices(p["layers"], cfg.num_layers):
-        h, r, kv = _layer_fwd(lp, h, r, cfg, positions)
+        h, r, kv, a = _layer_fwd(lp, h, r, cfg, positions)
         kvs.append(kv)
+        aux = aux + a
     # the fused kernel also writes the last h, which nothing reads: one
     # (B, S, d) store, against a launch for an unfused add
-    return _add_norm(h, r, p["ln_f"], cfg)[1], kvs
+    return _add_norm(h, r, p["ln_f"], cfg)[1], kvs, aux
 
 
 def forward(p: Params, cfg: ModelConfig, tokens):
-    """tokens (B,S) int -> (logits (B,S,V) f32, aux); aux is 0.0 for a
-    dense model (the reference's MoE load-balance term)."""
-    h, _ = _hidden(p, cfg, tokens)
-    return L.unembed(p, h, cfg), 0.0
+    """tokens (B,S) int -> (logits (B,S,V) f32, aux): aux is the layers'
+    summed MoE load-balancing term, 0.0 for a dense model."""
+    h, _, aux = _hidden(p, cfg, tokens)
+    return L.unembed(p, h, cfg), aux
 
 
 # loss_fn takes the chunked cross-entropy from padded_vocab * S on (the
@@ -140,16 +157,19 @@ def _chunked_xent(p: Params, cfg: ModelConfig, h, targets, mask=None,
     return torch.sum(nlls) / torch.clamp(torch.sum(counts), min=1)
 
 
-def loss_fn(p: Params, cfg: ModelConfig, batch):
+def loss_fn(p: Params, cfg: ModelConfig, batch, aux_weight: float = 0.01):
     """Mean next-token NLL of ``batch`` ({"tokens", "targets"[, "mask"]});
     chunked (``_chunked_xent``) once ``padded_vocab * S`` reaches
-    ``XENT_CHUNK_THRESHOLD``.  A dense model adds no auxiliary term."""
-    h, _ = _hidden(p, cfg, batch["tokens"])
+    ``XENT_CHUNK_THRESHOLD``.  A MoE model adds ``aux_weight`` times its
+    load-balancing term; a dense model adds nothing."""
+    h, _, aux = _hidden(p, cfg, batch["tokens"])
     if cfg.padded_vocab * h.shape[1] >= XENT_CHUNK_THRESHOLD:
-        return _chunked_xent(p, cfg, h, batch["targets"], batch.get("mask"),
-                             XENT_CHUNK)
-    logits = L.unembed(p, h, cfg)
-    return L.cross_entropy(logits, batch["targets"], batch.get("mask"))
+        nll = _chunked_xent(p, cfg, h, batch["targets"], batch.get("mask"),
+                            XENT_CHUNK)
+    else:
+        logits = L.unembed(p, h, cfg)
+        nll = L.cross_entropy(logits, batch["targets"], batch.get("mask"))
+    return nll if cfg.family == "dense" else nll + aux_weight * aux
 
 
 # --------------------------------------------------------------------------
@@ -158,7 +178,7 @@ def loss_fn(p: Params, cfg: ModelConfig, batch):
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device="cuda") -> dict:
-    _dense_only(cfg)
+    _check_family(cfg)
     device = resolve_device(device)
     dt = dtype or cfg.torch_dtype
     shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.hd)
@@ -170,7 +190,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
 def prefill(p: Params, cfg: ModelConfig, tokens, cache: dict):
     """Run the prompt, fill the cache IN PLACE (rows [0, S)), return the
     logits of the last position and the cache with ``pos = S``."""
-    h, kvs = _hidden(p, cfg, tokens)
+    h, kvs, _ = _hidden(p, cfg, tokens)
     S = tokens.shape[1]
     for i, (k, v) in enumerate(kvs):
         cache["k"][i, :, :S] = k
@@ -185,7 +205,7 @@ def decode_step(p: Params, cfg: ModelConfig, cache: dict, token):
     row attending to a KV cache of static length; ``cache["pos"]`` is a
     scalar or (B,) per-slot positions.  The cache's k/v are updated in
     place; the returned cache has ``pos + 1``."""
-    _dense_only(cfg)
+    _check_family(cfg)
     B = token.shape[0]
     h = L.embed(p, token[:, None])                     # (B,1,d)
     pos = cache["pos"]
@@ -198,7 +218,7 @@ def decode_step(p: Params, cfg: ModelConfig, cache: dict, token):
             lp["attn"], x, cfg, positions=positions, causal=False,
             kv_cache=(cache["k"][i], cache["v"][i]), cache_pos=pos)
         h, x = _add_norm(h, a, lp["ln2"], cfg)
-        r = L.swiglu(lp["mlp"], x)
+        r = _ffn(lp, x, cfg)[0]
     h = _add_norm(h, r, p["ln_f"], cfg)[1]
     logits = L.unembed(p, h, cfg)[:, 0]
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}

@@ -26,9 +26,17 @@ from repro_torch.models import api
 from repro_torch.models.base import ModelConfig
 
 
-# cache leaf -> batch axis (the reference's table for the dense and SSM
-# layouts; the hybrid layout comes with its slice)
-_BATCH_AXIS = {"k": 1, "v": 1, "ssm": 1, "conv": 1}
+# cache leaf -> batch axis (the reference's tables: the transformer and
+# SSM layouts, and the hybrid's, whose SSM states and conv tails are
+# stacked (G, attn_every, B, ...))
+_BATCH_AXIS = {"k": 1, "v": 1, "ssm": 1, "conv": 1, "ssm_tail": 1,
+               "conv_tail": 1}
+_HYBRID_AXIS = {"k": 1, "v": 1, "ssm": 2, "conv": 2, "ssm_tail": 1,
+                "conv_tail": 1}
+
+
+def _axis_for(cfg: ModelConfig, key: str) -> int:
+    return (_HYBRID_AXIS if cfg.family == "hybrid" else _BATCH_AXIS)[key]
 
 
 @dataclasses.dataclass
@@ -125,8 +133,9 @@ class Engine:
         for key, small in mini.items():
             if key == "pos":
                 continue
-            small = small.select(_BATCH_AXIS[key], 0)
-            big = self.cache[key].select(_BATCH_AXIS[key], slot)
+            axis = _axis_for(self.cfg, key)
+            small = small.select(axis, 0)
+            big = self.cache[key].select(axis, slot)
             big[tuple(slice(0, n) for n in small.shape)] = small
         self.cache["pos"][slot] = prompt_len
         self._pos[slot] = prompt_len

@@ -980,3 +980,84 @@ def test_mamba_loop_on_the_card_trains_and_replays(cuda, tmp_path):
     for name in ("ssd_chunk_kernel", "ssd_chunk_bwd", "gated_rmsnorm",
                  "gated_rmsnorm_bwd"):
         assert counts[name] == rep.steps_run * cfg.num_layers, name
+
+
+# the hybrid and MoE smokes, with attn_impl="flash" where their head dim
+# is a flash shape (zamba2's 16, so flash and SSD run in one model;
+# qwen3-moe's 16; dbrx's 8 is none, so it keeps "ref"): a forward's
+# kernel launches
+HYBRID_MOE_SMOKES = {
+    "zamba2-7b-smoke": ("flash", lambda L, G: {
+        "flash_attention": G, "ssd_chunk_kernel": L, "gated_rmsnorm": L,
+        "rmsnorm": 1, "add_rmsnorm": L + 2 * G}),
+    "qwen3-moe-30b-a3b-smoke": ("flash", lambda L, G: {
+        "flash_attention": L, "rmsnorm": 1, "add_rmsnorm": 2 * L}),
+    "dbrx-132b-smoke": ("ref", lambda L, G: {
+        "rmsnorm": 1, "add_rmsnorm": 2 * L})}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(HYBRID_MOE_SMOKES))
+def test_hybrid_and_moe_prefill_and_decode_match_plain(cuda, arch):
+    """A 37-token prefill (ragged for the SSD's chunk of 8 and for the
+    MoE's 4 groups) and 4 decode steps, f32, on the kernel path against
+    the plain path: logits and every cache leaf; the forward launched
+    each kernel of the path as many times as its layers say."""
+    from repro_torch.models import api, get_config
+    impl, launches = HYBRID_MOE_SMOKES[arch]
+    cfg = get_config(arch).replace(attn_impl=impl)
+    params = api.init(0, cfg, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 37), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(5))
+    L = cfg.num_layers
+    G = L // cfg.attn_every if cfg.attn_every else 0
+    outs = []
+    for c in (cfg, cfg.replace(use_kernels=False)):
+        ops.reset_launches()
+        api.forward(params, c, {"tokens": toks})
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        assert counts == (launches(L, G) if c is cfg else {})
+        cache = api.init_cache(c, 2, 48, device=cuda)
+        logits, cache = api.prefill(params, c, cache, {"tokens": toks})
+        steps = [logits]
+        for i in range(4):              # the same tokens on both paths
+            logits, cache = api.decode_step(params, c, cache, toks[:, i])
+            steps.append(logits)
+        outs.append((steps, cache))
+    (got, got_c), (want, want_c) = outs
+    for g, w in zip(got, want):
+        _assert_close(g, w, dict(atol=1e-4, rtol=1e-4))
+    for key in want_c:
+        _assert_close(got_c[key], want_c[key], dict(atol=1e-4, rtol=1e-4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(HYBRID_MOE_SMOKES))
+def test_hybrid_and_moe_grads_through_the_kernels_match_plain(cuda, arch):
+    """f32 gradients of the loss (batch 2 x 64) through the kernels'
+    backward against the plain path's, each leaf within 1e-4 of its max
+    |g|; each backward kernel once per forward call."""
+    from repro_torch.models import api, get_config
+    impl, launches = HYBRID_MOE_SMOKES[arch]
+    cfg = get_config(arch).replace(attn_impl=impl)
+    params = api.init(0, cfg, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(6))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    L = cfg.num_layers
+    G = L // cfg.attn_every if cfg.attn_every else 0
+    ops.reset_launches()
+    loss, got = _qwen_smoke_grads(params, cfg, batch)
+    torch.cuda.synchronize()
+    fwd = launches(L, G)
+    want_counts = {**fwd, **{k.replace("_kernel", "") + "_bwd": v
+                             for k, v in fwd.items()}}
+    assert {k: v for k, v in ops.launch_counts().items() if v} == \
+        want_counts
+    want_loss, want = _qwen_smoke_grads(params, cfg.replace(use_kernels=False),
+                                        batch)
+    assert abs(float(loss) - float(want_loss)) < 1e-4
+    for g, w in zip(got, want):
+        err = float((g - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), err

@@ -286,3 +286,17 @@ def test_decode_step_fuses_the_residual_add_and_the_gate(monkeypatch):
         calls = spy_norms(monkeypatch)
         api.decode_step(params, c, cache, logits.argmax(-1))
         assert calls == want
+
+
+def test_serve_llm_example_on_cpu():
+    """examples/serve_llm_torch.py: 12 requests of the reference's example
+    through 4 slots, each answered within its budget."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parent.parent / "examples" / \
+        "serve_llm_torch.py"
+    spec = importlib.util.spec_from_file_location("serve_llm_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    done = mod.main(["--device", "cpu"])
+    assert len(done) == 12 and all(1 <= len(r.output) <= 15 for r in done)

@@ -148,10 +148,12 @@ def test_prefill_cache_and_decode_match_jax(params, S):
     _close(tc["k"], jc["k"])
 
 
-def test_other_families_raise():
-    cfg = get_config(ARCH).replace(family="moe", num_experts=4,
-                                   experts_per_token=2)
-    with pytest.raises(NotImplementedError, match="moe"):
+@pytest.mark.parametrize("family", ["encdec", "vlm"])
+def test_other_families_raise(family):
+    """The families not ported yet raise; moe and hybrid run (their own
+    files)."""
+    cfg = get_config(ARCH).replace(family=family)
+    with pytest.raises(NotImplementedError, match=family):
         api.init(0, cfg, device="cpu")
 
 

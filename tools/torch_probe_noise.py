@@ -11,7 +11,11 @@ its plain version changes only the order of f32 sums, so how far that
 moves the bf16 logits is the noise floor a kernel-vs-plain probe gate
 has to clear.
 
-    PYTHONPATH=src python tools/torch_probe_noise.py [--arch mamba2-1.3b]
+    PYTHONPATH=src python tools/torch_probe_noise.py [--arch mamba2-1.3b] \
+        [--no-f32]
+
+``--no-f32`` leaves out the two f32 runs, for a model whose f32 weights
+do not fit the card (internlm2-20b's 79 GB).
 
 Needs a CUDA device; prints one JSON object as its last line.
 """
@@ -35,7 +39,9 @@ PLAIN = {"rmsnorm": lambda x, w, eps=1e-6: ref.rmsnorm_ref(x, w, eps),
          "flash_attention": ref.flash_attention_ref,
          "ssd_chunked": ssm.ssd_reference}
 ON_PATH = {"dense": ("rmsnorm", "flash_attention"),
-           "ssm": ("rmsnorm", "ssd_chunked")}
+           "moe": ("rmsnorm", "flash_attention"),
+           "ssm": ("rmsnorm", "ssd_chunked"),
+           "hybrid": ("rmsnorm", "ssd_chunked")}
 
 
 @contextlib.contextmanager
@@ -55,6 +61,7 @@ def only(kernel):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="mamba2-1.3b")
+    ap.add_argument("--no-f32", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_probe_noise: no CUDA device", file=sys.stderr)
@@ -76,21 +83,26 @@ def main(argv=None) -> int:
     for kernel in ON_PATH[cfg.family]:
         with only(kernel):
             runs[f"{kernel} only"] = logits(cfg, params)
-    cast = (lambda t: {k: cast(v) for k, v in t.items()}
-            if isinstance(t, dict) else t.float())
-    p32, c32 = cast(params), cfg.replace(dtype="float32")
-    runs["f32 kernels"] = logits(c32, p32)
-    runs["f32 plain"] = logits(c32.replace(use_kernels=False), p32)
+    if not args.no_f32:
+        cast = (lambda t: {k: cast(v) for k, v in t.items()}
+                if isinstance(t, dict) else t.float())
+        p32, c32 = cast(params), cfg.replace(dtype="float32")
+        runs["f32 kernels"] = logits(c32, p32)
+        runs["f32 plain"] = logits(c32.replace(use_kernels=False), p32)
+    anchor = runs.get("f32 plain")
     table = {name: {"vs_plain": (v - runs["plain"]).abs().max().item(),
-                    "vs_f32_plain": (v - runs["f32 plain"]).abs().max()
-                    .item(), "top1": int(v.argmax())}
+                    "vs_f32_plain": None if anchor is None else
+                    (v - anchor).abs().max().item(), "top1": int(v.argmax())}
              for name, v in runs.items()}
+    top = (runs["plain"] if anchor is None else anchor).abs().max().item()
     print(f"{args.arch} ({cfg.dtype}), probe of {PROBE_LEN} tokens, "
-          f"max|logit| (f32 plain) {runs['f32 plain'].abs().max().item():.4f}"
-          f", on {torch.cuda.get_device_name(0)}")
+          f"max|logit| ({'bf16' if anchor is None else 'f32'} plain) "
+          f"{top:.4f}, on {torch.cuda.get_device_name(0)}")
     for name, row in table.items():
+        f32 = row["vs_f32_plain"]
         print(f"  {name:24s} vs bf16 plain {row['vs_plain']:.4e}   vs f32 "
-              f"plain {row['vs_f32_plain']:.4e}   top-1 {row['top1']}")
+              f"plain {'-' if f32 is None else f'{f32:.4e}'}   top-1 "
+              f"{row['top1']}")
     print(json.dumps({"arch": args.arch, "device":
                       torch.cuda.get_device_name(0), "runs": table}))
     return 0
