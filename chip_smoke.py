@@ -23,7 +23,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    (torch.profiler), and autograd's beside the norms'; the
    forward's log-sum-exp is held to its plain version; the fused norms'
    h must equal the eager add bit for bit, and BS's whole sort on the
-   kernels must equal ``torch.sort`` (timed beside it);
+   kernels must equal ``torch.sort`` (timed beside it); phase 15's
+   shapes too: flash non-causal at Sq = Skv = 1500 and at Sq = 8 and 1
+   against 1500 keys, causal at 2944 with G = 7, its backward
+   non-causal at 1500 x 1500 and 448 x 1500, the norms at d = 512 and
+   7168;
 3. serve  — qwen2-1.5b at full width (bf16, 28 layers, random weights
    from a seed): ``api.loss(...).backward()`` on the kernel path must run
    the backward kernels and give every param a finite gradient,
@@ -119,7 +123,21 @@ Phases, each of which raises (and so exits non-zero) on failure:
    compared, the logits held where the routing agrees and the greedy
    tokens identical; dbrx-132b's train step on meta (FLOPs over E x C
    capacity slots); the two MoE smokes trained 20 AdamW steps.
-   Each of phases 12-14 starts with at most LEFT_OVER_LIMIT_GIB left on
+15. modal — the enc-dec and VLM families, served through
+   ``api.init_cache`` -> ``api.prefill`` -> ``api.decode_step`` (the
+   Engine hands prefill no frames or patches and refuses them): (a)
+   whisper-base (6 + 6 layers, encoder and cross-attention on the flash
+   kernel non-causal) serves 4 requests of 1500 frames, 8-token prompts
+   and 120 new tokens, its f32 greedy tokens identical on the two paths;
+   (b) it trains as phase 8 does (f32 and bf16 gradient gates at 2 x
+   448, 20 AdamW steps at 8 x 448, flash's backward in every encoder,
+   self- and cross-attention block); (c) llava-next-34b (60 layers, 68.78
+   GB of bf16 weights made on the card) serves 4 requests of 2880
+   patches, 64-token prompts and 32 new tokens, its bf16 probe read and
+   its f32 greedy tokens identical at 8 of its 60 layers; (d) its train
+   step (2 x (2880 patches + 1024 tokens)) traced on meta, and the two
+   smokes trained 20 AdamW steps.
+   Each of phases 12-15 starts with at most LEFT_OVER_LIMIT_GIB left on
    the card, and every served model prints tok/s, decode step ms,
    device busy ms and idle share, launches a decode step and peak
    memory beside the card's name and power limit.
@@ -129,8 +147,8 @@ and power limit from nvidia-smi; the last line is ``{"ok": true,
 "device": {...}}``.  Every case, the serving and training numbers and
 the MGMark rows and simulated numbers, phase 9's ``loop``,
 ``analysis`` and ``quickstart`` numbers, phase 11's ``sim`` numbers and
-phases 12-14's ``dense_configs``, ``hybrid`` and ``moe`` numbers also go
-to ``build/chip_smoke.json``.  Without a CUDA
+phases 12-15's ``dense_configs``, ``hybrid``, ``moe`` and ``modal``
+numbers also go to ``build/chip_smoke.json``.  Without a CUDA
 device, or outside a checkout, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -208,6 +226,20 @@ ZAMBA_GATED_BWD_SHAPE = (2048, 7168)
 # flash forward at qwen1.5-4b's heads (MHA, H = K = 20) and qwen3-moe's
 # (H = 32, K = 4), hd 128, on a 995-token prompt
 NEW_FLASH_HEADS = ((20, 20), (32, 4))
+# phase 15's attention shapes, (B, Sq, Skv, H, K, hd, causal): whisper-
+# base's encoder (4 requests of 1500 frames, MHA, hd 64), its
+# cross-attention at the 8-token prefill and at decode, llava-next-34b's
+# prefill (2880 patches + 64 tokens, GQA 56:8, hd 128)
+MODAL_FLASH_CASES = ((4, 1500, 1500, 8, 8, 64, False),
+                     (4, 8, 1500, 8, 8, 64, False),
+                     (4, 1, 1500, 8, 8, 64, False),
+                     (1, 2944, 2944, 56, 8, 128, True))
+# the flash backward at whisper-base's training batch of 8 x 448: the
+# encoder (non-causal 1500 x 1500) and the cross-attention (448 x 1500)
+MODAL_FLASH_BWD_CASES = ((8, 1500, 1500, 8, 8, 64), (8, 448, 1500, 8, 8, 64))
+# the norms at whisper-base's (512) and llava-next-34b's (7168) widths
+MODAL_NORM_DIMS = (512, 7168)
+MODAL_NORM_ROWS = (4, 995)
 # the times of the two backward kernels before their redesign on the
 # tensor cores and for bandwidth, at their main shapes (PERF.md section
 # 6, on an H100 80GB HBM3 at 700 W), printed beside this run's: a
@@ -302,7 +334,8 @@ MAMBA_ARCH = "mamba2-1.3b"
 TRAIN_GRAD_BATCH, TRAIN_GRAD_SEQ = 1, 1024
 TRAIN_GRAD_SEEDS = (1, 2)
 TRAIN_F32_TOL = 1e-4
-TRAIN_BF16_MARGINS = {"dense": (0.05, 0.01), "ssm": (0.1, 0.01)}
+TRAIN_BF16_MARGINS = {"dense": (0.05, 0.01), "ssm": (0.1, 0.01),
+                      "encdec": (0.05, 0.01)}
 # family -> (label, launcher module in repro_torch.kernels, launcher,
 # the rounding of its outputs)
 TRAIN_BF16_CONTROLS = {
@@ -528,13 +561,13 @@ def phase_kernels():
         check(ok, f"{name} {shape} {dtype}: kernel disagrees with its plain "
                   f"version (max abs err {row['max_abs_err']:.3e})")
 
-    def sdpa(qt, kt, vt, backend):
+    def sdpa(qt, kt, vt, backend, causal=True):
         from torch.nn.attention import SDPBackend, sdpa_kernel
 
         def call():
             with sdpa_kernel(getattr(SDPBackend, backend)):
                 return F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True)
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)
         return call
 
     # qwen2-1.5b's heads (H=12, K=2) at every length, then phases 12 and
@@ -558,13 +591,47 @@ def phase_kernels():
                    {name: sdpa(qt, kt, vt, name) for name in SDPA_BACKENDS},
                    kbound(cost.flash_attention(q, k), dtype))
 
+    # phase 15's shapes: non-causal with Sq = Skv and Sq != Skv (one or
+    # eight live rows of a 64-row bf16 tile), and llava's causal prefill
+    # at G = 7; the log-sum-exp of each held to its plain version too
+    for B, Sq, Skv, H, K, hd_, causal in MODAL_FLASH_CASES:
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            q = torch.randn(B, Sq, H, hd_, generator=gen,
+                            device="cuda").to(dt)
+            k = torch.randn(B, Skv, K, hd_, generator=gen,
+                            device="cuda").to(dt)
+            v = torch.randn(B, Skv, K, hd_, generator=gen,
+                            device="cuda").to(dt)
+            got, lse = fa.flash_attention(q, k, v, causal=causal,
+                                          with_lse=True)
+            want = ref.flash_attention_ref(q, k, v, causal=causal)
+            lse_want = ref.flash_attention_lse_ref(q, k, v, causal)
+            lse_err = (lse - lse_want).abs()
+            torch.cuda.synchronize()
+            shape = (f"B={B},Sq={Sq},Skv={Skv},H={H},K={K},hd={hd_}"
+                     + (",causal" if causal else ""))
+            check(bool((lse_err <= LSE_TOL[0]
+                        + LSE_TOL[1] * lse_want.abs()).all()),
+                  f"flash_attention {shape} {dtype}: its log-sum-exp "
+                  f"disagrees with the plain version (max abs err "
+                  f"{lse_err.max().item():.3e})")
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            record("flash_attention", shape, dtype, got, want,
+                   lambda: fa.flash_attention(q, k, v, causal=causal),
+                   lambda: ref.flash_attention_ref(q, k, v, causal),
+                   {name: sdpa(qt, kt, vt, name, causal)
+                    for name in SDPA_BACKENDS},
+                   kbound(cost.flash_attention(q, k, causal), dtype),
+                   lse_max_abs_err=lse_err.max().item())
+
     # The flash backward at qwen2-1.5b's heads, on the kernel forward's o
     # and log-sum-exp (held to the plain LSE first).  Bound: 2.5x the
     # forward's causal operations (recomputed S, dP, dV, dQ, dK against
     # S and P V) at the dtype's peak; bytes q, k, v, o, dO and lse read
     # once, dq, dk, dv written once.  Library: SDPA's forward + backward
     # less its forward, per backend, the fastest kept.
-    def sdpa_times(q, k, v, do):
+    def sdpa_times(q, k, v, do, causal=True):
         from torch.nn.attention import SDPBackend, sdpa_kernel
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                       for t in (q, k, v))
@@ -573,7 +640,7 @@ def phase_kernels():
         def fwd(backend):
             with sdpa_kernel(getattr(SDPBackend, backend)):
                 return F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True)
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)
         times = {}
         for backend in SDPA_BACKENDS:
             try:
@@ -584,31 +651,45 @@ def phase_kernels():
                 times[backend] = None
         return times
 
-    for B, S, H, K, hd in FLASH_BWD_CASES:
+    # qwen2-1.5b's causal cases (Sq = Skv = S), then whisper-base's
+    # non-causal ones (MODAL_FLASH_BWD_CASES)
+    for B, Sq, Skv, H, K, hd, causal in (
+            [(B, S, S, H, K, hd, True) for B, S, H, K, hd in FLASH_BWD_CASES]
+            + [(*c, False) for c in MODAL_FLASH_BWD_CASES]):
         for dtype in ("bfloat16", "float32"):
             dt = getattr(torch, dtype)
-            q = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dt)
-            k = torch.randn(B, S, K, hd, generator=gen, device="cuda").to(dt)
-            v = torch.randn(B, S, K, hd, generator=gen, device="cuda").to(dt)
-            do = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dt)
-            o, lse = fa.flash_attention(q, k, v, causal=True, with_lse=True)
-            lse_err = (lse - ref.flash_attention_lse_ref(q, k, v)).abs()
-            lse_want = ref.flash_attention_lse_ref(q, k, v).abs()
+            q = torch.randn(B, Sq, H, hd, generator=gen,
+                            device="cuda").to(dt)
+            k = torch.randn(B, Skv, K, hd, generator=gen,
+                            device="cuda").to(dt)
+            v = torch.randn(B, Skv, K, hd, generator=gen,
+                            device="cuda").to(dt)
+            do = torch.randn(B, Sq, H, hd, generator=gen,
+                             device="cuda").to(dt)
+            shape = (f"B={B},S={Sq},hd={hd}" if causal else
+                     f"B={B},Sq={Sq},Skv={Skv},H={H},hd={hd}")
+            o, lse = fa.flash_attention(q, k, v, causal=causal,
+                                        with_lse=True)
+            lse_err = (lse - ref.flash_attention_lse_ref(q, k, v, causal)
+                       ).abs()
+            lse_want = ref.flash_attention_lse_ref(q, k, v, causal).abs()
             check(bool((lse_err <= LSE_TOL[0] + LSE_TOL[1] * lse_want).all()),
-                  f"flash_attention B={B},S={S},hd={hd} {dtype}: its "
+                  f"flash_attention {shape} {dtype}: its "
                   f"log-sum-exp disagrees with the plain version "
                   f"(max abs err {lse_err.max().item():.3e})")
-            got = fa.flash_attention_bwd(q, k, v, o, lse, do)
-            want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do)
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+            want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
             torch.cuda.synchronize()
             times = launch_ms(
-                lambda: fa.flash_attention_bwd(q, k, v, o, lse, do))
-            record("flash_attention_bwd", f"B={B},S={S},hd={hd}", dtype,
-                   got, want,
-                   lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
-                   lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do),
-                   sdpa_times(q, k, v, do),
-                   kbound(cost.flash_attention_bwd(q, k, lse), dtype),
+                lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal))
+            record("flash_attention_bwd", shape, dtype, got, want,
+                   lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                  causal),
+                   lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                       causal),
+                   sdpa_times(q, k, v, do, causal),
+                   kbound(cost.flash_attention_bwd(q, k, lse, causal),
+                          dtype),
                    tol=BWD_TOL[dtype],
                    lse_max_abs_err=lse_err.max().item(),
                    library_calls="SDPA forward + backward less forward",
@@ -706,8 +787,10 @@ def phase_kernels():
         print_launches("kernel", times)
         print_launches("autograd", lib_times)
 
-    # qwen2-1.5b's d_model; mamba2-1.3b's gated norm over d_inner
-    for d, rows_list in ((1536, RMS_ROWS), (4096, RMS_ROWS_MAMBA)):
+    # qwen2-1.5b's d_model; mamba2-1.3b's gated norm over d_inner;
+    # whisper-base's and llava-next-34b's d_model
+    for d, rows_list in ((1536, RMS_ROWS), (4096, RMS_ROWS_MAMBA),
+                         *((d, MODAL_NORM_ROWS) for d in MODAL_NORM_DIMS)):
         for rows in rows_list:
             for dtype in ("bfloat16", "float32"):
                 dt = getattr(torch, dtype)
@@ -730,11 +813,13 @@ def phase_kernels():
     # add and division, the product, then the norm's 4).  Library: the
     # same function as PyTorch calls, the add or the gate separate from
     # F.rms_norm (no one call fuses them).
-    for kind, dims in (("add_rmsnorm", ADD_NORM_DIMS + NEW_ADD_NORM_DIMS),
+    for kind, dims in (("add_rmsnorm", ADD_NORM_DIMS + NEW_ADD_NORM_DIMS
+                        + MODAL_NORM_DIMS),
                        ("gated_rmsnorm", (GATED_NORM_DIM,
                                           NEW_GATED_NORM_DIM))):
         for d in dims:
-            for rows in FUSED_ROWS:
+            for rows in (MODAL_NORM_ROWS if d in MODAL_NORM_DIMS
+                         else FUSED_ROWS):
                 for dtype in ("bfloat16", "float32"):
                     dt = getattr(torch, dtype)
                     x = torch.randn(rows, d, generator=gen,
@@ -912,12 +997,16 @@ def phase_kernels():
     return cases
 
 
-def _greedy(api, cfg, params, prompt, n_new):
-    """Batch-1 greedy decode through the api; returns tokens and each
-    step's top-2 logit gap."""
+def _greedy(api, cfg, params, prompt, n_new, stub=None):
+    """Batch-1 greedy decode through the api, ``stub`` ({"frames": ...}
+    or {"patches": ...} of batch 1) in the prefill's batch; returns
+    tokens and each step's top-2 logit gap."""
     import torch
-    cache = api.init_cache(cfg, 1, len(prompt) + n_new)
-    logits, cache = api.prefill(params, cfg, cache, {"tokens": prompt[None]})
+    rows = len(prompt) + n_new + (cfg.num_patches if cfg.family == "vlm"
+                                  else 0)
+    cache = api.init_cache(cfg, 1, rows)
+    logits, cache = api.prefill(params, cfg, cache,
+                                {"tokens": prompt[None], **(stub or {})})
     toks, gaps = [], []
     for _ in range(n_new):
         top = torch.topk(logits[0], 2).values
@@ -937,11 +1026,20 @@ def serve_launches(cfg, prefills: int, steps: int) -> dict:
     transformer's fused ln_f runs over every row).  Prefills run flash
     (where selected) and the SSD chunk a layer; decode steps attend by
     einsum and step the SSM state without the chunk kernel; the gated norm
-    runs in both."""
+    runs in both.  An enc-dec prefill adds the encoder (a plain norm,
+    two fused a layer, ln_enc the last, flash a layer) and runs flash
+    twice a decoder layer (self, cross) and three fused norms; its decode
+    steps run the cross-attention's flash a layer."""
     from repro_torch.kernels import ops
     L = cfg.num_layers
     flash = cfg.attn_impl == "flash"
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family == "encdec":
+        Le = cfg.encoder_layers
+        pre = {"rmsnorm": 2, "add_rmsnorm": 2 * Le + 3 * L,
+               "flash_attention": (Le + 2 * L) * flash}
+        dec = {"rmsnorm": 1, "add_rmsnorm": 3 * L,
+               "flash_attention": L * flash}
+    elif cfg.family in ("ssm", "hybrid"):
         G = L // cfg.attn_every if cfg.family == "hybrid" else 0
         pre = {"ssd_chunk_kernel": L, "gated_rmsnorm": L, "rmsnorm": 2,
                "add_rmsnorm": L - 1 + 2 * G, "flash_attention": G * flash}
@@ -1102,11 +1200,17 @@ def step_launches(cfg) -> dict:
     """The kernel launches of one training step (forward and backward) of
     a model of ``cfg``: a layer's mixer (flash attention where selected,
     or the SSD chunk and the gated norm; the hybrid's shared block's
-    attention once an application), its pre-norms with the residual add
-    fused in (the first layer's is plain), and the final norm."""
+    attention once an application; an enc-dec's encoder attention and
+    its decoder's self- and cross-attention), its pre-norms with the
+    residual add fused in (each stack's first is plain), and the final
+    norm (and an enc-dec's ln_enc)."""
     L = cfg.num_layers
     flash = cfg.attn_impl == "flash"
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family == "encdec":
+        Le = cfg.encoder_layers
+        fwd = {"flash_attention": (Le + 2 * L) * flash, "rmsnorm": 2,
+               "add_rmsnorm": 2 * Le + 3 * L}
+    elif cfg.family in ("ssm", "hybrid"):
         G = L // cfg.attn_every if cfg.family == "hybrid" else 0
         fwd = {"ssd_chunk_kernel": L, "gated_rmsnorm": L, "rmsnorm": 1,
                "add_rmsnorm": L + 2 * G, "flash_attention": G * flash}
@@ -1448,9 +1552,13 @@ def _rel_l2(a, b):
     return ((a.float() - b).norm() / b.norm().clamp(min=1e-30)).item()
 
 
-def phase_train(arch: str, phase: int):
-    """Phase 8 (and 10 (a)-(c) for mamba).  Returns (the phase's numbers,
-    launches of the 20-step run by kernel)."""
+def phase_train(arch: str, phase: int, batch_seq=(TRAIN_BATCH, TRAIN_SEQ),
+                grad_batch_seq=(TRAIN_GRAD_BATCH, TRAIN_GRAD_SEQ)):
+    """Phase 8 (and 10 (a)-(c) for mamba, 15 (b) for whisper-base).
+    ``batch_seq`` is (c)'s training batch, ``grad_batch_seq`` (a) and
+    (b)'s; an enc-dec's or VLM's batches carry their frames or patches
+    (``data.model_batch``).  Returns (the phase's numbers, launches of
+    the 20-step run by kernel)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1459,8 +1567,10 @@ def phase_train(arch: str, phase: int):
     from repro_torch.models import api, get_config
     from repro_torch.sharding import umode
     from repro_torch.train import optim
-    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.data import DataConfig, SyntheticLM, model_batch
     print(f"== phase {phase}: train {arch} at full width", flush=True)
+    train_b, train_s = batch_seq
+    grad_b, grad_s = grad_batch_seq
     gc.collect()
     torch.cuda.empty_cache()
     cfg = get_config(arch)
@@ -1468,13 +1578,13 @@ def phase_train(arch: str, phase: int):
     per_step = step_launches(cfg)
     def grad_batch(seed):
         data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
-                                      seq_len=TRAIN_GRAD_SEQ,
-                                      global_batch=TRAIN_GRAD_BATCH,
+                                      seq_len=grad_s,
+                                      global_batch=grad_b,
                                       seed=seed))
         return {k: torch.as_tensor(v, device="cuda")
-                for k, v in data.global_batch(0).items()}
+                for k, v in model_batch(cfg, data, 0).items()}
     batch = grad_batch(TRAIN_GRAD_SEEDS[0])
-    out = {"arch": arch, "grad_batch": [TRAIN_GRAD_BATCH, TRAIN_GRAD_SEQ]}
+    out = {"arch": arch, "grad_batch": [grad_b, grad_s]}
 
     # (a) f32 gradients, kernel path vs plain path, full depth
     c32 = cfg.replace(dtype="float32")
@@ -1491,7 +1601,7 @@ def phase_train(arch: str, phase: int):
     del g_k
     names = [".".join(p) for p in _paths(p32)]
     worst = int(np.argmax(rel32))
-    print(f"  (a) f32 gradients (batch {TRAIN_GRAD_BATCH} x {TRAIN_GRAD_SEQ}, "
+    print(f"  (a) f32 gradients (batch {grad_b} x {grad_s}, "
           f"{L} layers): loss kernels {loss_k:.6f} plain {loss_p:.6f}; "
           f"largest per-param distance {rel32[worst]:.3e} ({names[worst]}) "
           f"of max |g| (tol {TRAIN_F32_TOL})")
@@ -1581,8 +1691,8 @@ def phase_train(arch: str, phase: int):
     # (c) AdamW steps through the launcher's code
     opt_cfg = optim.OptConfig(lr=TRAIN_LR, total_steps=TRAIN_STEPS,
                               warmup_steps=max(1, TRAIN_STEPS // 10))
-    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-                          global_batch=TRAIN_BATCH)
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=train_s,
+                          global_batch=train_b)
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -1600,13 +1710,13 @@ def phase_train(arch: str, phase: int):
     check(last < first, f"the loss did not fall: first 5 steps {first:.4f}, "
                         f"last 5 {last:.4f}")
     step_ms = statistics.median(r["step_ms"] for r in records[1:])
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = train_b * train_s
 
     # one more step with the launch counters read around it, then two
     # under the profiler (device busy; the idle share is taken against
     # the unprofiled median step)
     step_fn = umode.make_train_step(cfg, opt_cfg)
-    batches = [SyntheticLM(data_cfg).global_batch(TRAIN_STEPS + i)
+    batches = [model_batch(cfg, SyntheticLM(data_cfg), TRAIN_STEPS + i)
                for i in range(3)]
     ops.reset_launches()
     state, m = step_fn(state, batches[0])
@@ -1647,7 +1757,7 @@ def phase_train(arch: str, phase: int):
               "adamw_update_ms": ev[1].elapsed_time(ev[2])}
     del g
     out["steps"] = {
-        "steps": TRAIN_STEPS, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+        "steps": TRAIN_STEPS, "batch": [train_b, train_s],
         "lr": TRAIN_LR, "losses": losses, "loss_first5": first,
         "loss_last5": last, "step_ms": [r["step_ms"] for r in records],
         "step_ms_median": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
@@ -1656,8 +1766,8 @@ def phase_train(arch: str, phase: int):
         "step_ms_profiled": prof_ms, "idle_share": 1 - busy_ms / step_ms,
         "kernel_launches_per_step": sum(e.count for e in kernels) / 2,
         "device_ms_per_step_by_group": groups, **halves}
-    print(f"  (c) {TRAIN_STEPS} AdamW steps, batch {TRAIN_BATCH} x "
-          f"{TRAIN_SEQ}: loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of "
+    print(f"  (c) {TRAIN_STEPS} AdamW steps, batch {train_b} x "
+          f"{train_s}: loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of "
           f"first 5 {first:.4f}, last 5 {last:.4f}); median step "
           f"{step_ms:.1f} ms, {tokens / step_ms * 1e3:.0f} tok/s; peak "
           f"{peak:.2f} GiB above the {base / 2 ** 30:.2f} GiB left before; "
@@ -1881,6 +1991,8 @@ def trace_check(cfg, train_step_ms, want_mm=None):
     state = optim.init_state(api.init(0, cfg, device="meta"))
     batch = {k: torch.zeros((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int64,
                             device="meta") for k in ("tokens", "targets")}
+    stub = modal_stub(cfg, TRAIN_BATCH, "meta")
+    batch.update(stub)
     cost = analyze(umode.make_train_step(cfg, optim.OptConfig()), state,
                    batch)
     trace_s = time.perf_counter() - t0
@@ -1910,8 +2022,9 @@ def trace_check(cfg, train_step_ms, want_mm=None):
               f"{terms.t_memory * 1e3:.3f} ms, {terms.dominant}-bound)")
     check(all(v["sim_step_ms"] > 0 for v in sims.values()),
           f"simulated steps {sims}")
+    shown = "".join(f", {k} {tuple(v.shape)}" for k, v in stub.items())
     print(f"  traced one train step of {cfg.name} (batch {TRAIN_BATCH} x "
-          f"{TRAIN_SEQ}) on meta in {trace_s:.2f} s: "
+          f"{TRAIN_SEQ} tokens{shown}) on meta in {trace_s:.2f} s: "
           f"{len(cost.trace)} ops, {cost.flops:.4g} FLOPs "
           f"({matmul_flops(cost):.4g} in matrix products"
           + ("" if want_mm is None else f", the config's count {want_mm:.4g}")
@@ -2575,6 +2688,257 @@ def phase_moe():
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the enc-dec and VLM families
+# ---------------------------------------------------------------------------
+ENCDEC_ARCH, VLM_ARCH = "whisper-base", "llava-next-34b"
+# (a) whisper-base served through the api's entry points (the Engine
+# hands prefill no frames): 4 requests in one batch, each with 1500
+# frames from the seed, an 8-token prompt and 120 new tokens, in a cache
+# of 448 rows, whisper's text context (arXiv:2212.04356)
+ENCDEC_SERVE = dict(requests=4, prompt=8, new_tokens=120, max_seq=448)
+# (b) its training: 20 AdamW steps at batch 8 x 448 tokens with frames,
+# lr TRAIN_LR; phase 8's gradient gates at batch 2 x 448
+ENCDEC_TRAIN, ENCDEC_GRAD = (8, 448), (2, 448)
+# (c) llava-next-34b served: 4 requests in one batch, each with 2880
+# patches from the seed, a 64-token text prompt and 32 new tokens, in a
+# cache of 4096 rows (4 x 4096 x 245,760 B = 4.03 GB beside 68.78 GB of
+# weights); its f32 check 8 of 60 layers deep (21.5 GB), as phase 12 cut
+# internlm2-20b
+VLM_SERVE = dict(requests=4, prompt=64, new_tokens=32, max_seq=4096)
+VLM_F32_LAYERS = 8
+STUB_STD = 0.02         # the stubs' scale, as train.data.make_batch's
+MODAL_SMOKE_TRAIN = ("whisper-base-smoke", "llava-next-34b-smoke")
+
+
+def modal_stub(cfg, batch: int, device, gen=None) -> dict:
+    """An enc-dec's frames (batch, encoder_seq, d) or a VLM's patches
+    (batch, num_patches, d), f32: N(0, STUB_STD) drawn from ``gen``, or
+    zeros without one (on meta); {} for the other families."""
+    import torch
+    from repro_torch.models import api
+    if cfg.family not in api.STUB_KEYS:
+        return {}
+    key = api.STUB_KEYS[cfg.family]
+    n = cfg.encoder_seq if cfg.family == "encdec" else cfg.num_patches
+    shape = (batch, n, cfg.d_model)
+    if gen is None:
+        return {key: torch.zeros(shape, device=device)}
+    return {key: STUB_STD * torch.randn(shape, generator=gen,
+                                        device=device)}
+
+
+def modal_serve(arch: str, requests: int, prompt: int, new_tokens: int,
+                max_seq: int, probe: bool) -> dict:
+    """Phase 15 (a) and (c): ``arch`` at full width, bf16, random weights
+    from seed 0, served through ``api.init_cache`` -> ``api.prefill`` ->
+    a greedy loop of ``api.decode_step``: ``requests`` in one batch, each
+    with its frames or patches from the seed, a ``prompt``-token text and
+    ``new_tokens`` new tokens (the prefill's, then new_tokens - 1 decode
+    steps), each step's tokens read on the host as a server streams them.
+    The kernels' launch counters around the run equal ``serve_launches``
+    of one prefill; no backward and no stored log-sum-exp.  With
+    ``probe``, first the bf16 kernel-vs-plain prefill logits of the first
+    request, read as tools/torch_probe_noise.py reads them and not gated
+    (the f32 check is the gate).  Then 5 decode steps under the profiler:
+    device busy ms and the idle share of the median step."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.models import api, get_config
+    cfg = get_config(arch)
+    check(cfg.dtype == "bfloat16" and cfg.attn_impl == "flash",
+          f"unexpected config {cfg}")
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = api.init(0, cfg, device="cuda")
+    torch.cuda.synchronize()
+    n_params = api.param_count(params)
+    check(n_params == cfg.param_count(), "param count")
+    init_s = time.perf_counter() - t0
+    print(f"  init {n_params:,} params ({cfg.family}, {cfg.num_layers} "
+          f"layers, d={cfg.d_model}, V={cfg.vocab_size}) in {init_s:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card",
+          flush=True)
+    V = cfg.vocab_size
+    stub = modal_stub(cfg, requests, "cuda",
+                      torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, V, (requests, prompt)), device="cuda"), **stub}
+    probe_row = None
+    if probe:
+        first = {k: v[:1] for k, v in batch.items()}
+        outs = {}
+        for label, c in (("kernels", cfg),
+                         ("plain", cfg.replace(use_kernels=False))):
+            cache = api.init_cache(c, 1, max_seq)
+            outs[label] = api.prefill(params, c, cache, first)[0][0, :V]
+            del cache
+        check(bool(torch.isfinite(outs["kernels"]).all()),
+              "non-finite prefill logits")
+        top = [int(v.argmax()) for v in outs.values()]
+        probe_row = {
+            "max_abs_diff": (outs["kernels"] - outs["plain"]).abs().max()
+            .item(), "max_abs_logit": outs["plain"].abs().max().item(),
+            "top1": top, "rows": prompt + cfg.num_patches}
+        print(f"  bf16 probe (one request, {probe_row['rows']} rows): "
+              f"kernels vs plain max|diff| {probe_row['max_abs_diff']:.4e} "
+              f"(max|logit| {probe_row['max_abs_logit']:.3f}), top-1 {top}; "
+              f"read, not gated: the f32 check below is the gate")
+        del outs
+        gc.collect()
+        torch.cuda.empty_cache()
+    cache = api.init_cache(cfg, requests, max_seq)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    out, step_ms = [], []
+    with lse_requests() as lse_flags:
+        t0 = time.perf_counter()
+        logits, cache = api.prefill(params, cfg, cache, batch)
+        tok = torch.argmax(logits, -1)
+        out.append(tok.tolist())
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        for _ in range(new_tokens - 1):
+            s0 = time.perf_counter()
+            logits, cache = api.decode_step(params, cfg, cache, tok)
+            tok = torch.argmax(logits, -1)
+            out.append(tok.tolist())
+            step_ms.append((time.perf_counter() - s0) * 1e3)
+        wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    toks = np.array(out).T                      # (requests, new_tokens)
+    check(toks.shape == (requests, new_tokens)
+          and bool(((toks >= 0) & (toks < V)).all()),
+          f"{arch}: tokens of shape {toks.shape} or outside the vocabulary")
+    check(bool(torch.isfinite(logits[:, :V]).all()),
+          f"{arch}: non-finite decode logits")
+    want = serve_launches(cfg, 1, new_tokens - 1)
+    check(launches == want, f"serving {arch} launched {launches}, expected "
+                            f"{want} (1 prefill, {new_tokens - 1} decode "
+                            f"steps)")
+    check(not any(lse_flags), f"serving {arch} stored a log-sum-exp")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(5):
+            logits, cache = api.decode_step(params, cfg, cache, tok)
+            tok = torch.argmax(logits, -1)
+            tok.tolist()
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t1) * 1e3 / 5
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / 5
+    check(busy > 0, "the profiler saw no device time in decode steps")
+    step_med = statistics.median(step_ms)
+    row = {"arch": arch, "card": card(), "init_s": init_s,
+           "requests": requests, "prompt_tokens": prompt,
+           "stub": {k: list(v.shape) for k, v in stub.items()},
+           "new_tokens": int(toks.size), "max_seq": max_seq,
+           "probe": probe_row, "prefill_ms": prefill_ms, "wall_s": wall,
+           "tokens_per_s": toks.size / wall,
+           "decode_step_ms_median": step_med,
+           "decode_step_ms_max": max(step_ms), "device_busy_ms": busy,
+           "idle_share": 1 - busy / step_med, "step_ms_profiled": prof_ms,
+           "kernel_launches_per_step": sum(e.count for e in kernels) / 5,
+           "kernel_launches_per_step_formula": serve_launches(cfg, 0, 1),
+           "peak_gib": peak, "launches": launches,
+           "tokens_first_request": toks[0].tolist()}
+    print(f"  served {requests} requests x {new_tokens} new tokens "
+          f"({toks.size} tokens) in {wall:.3f} s: prefill {prefill_ms:.1f} "
+          f"ms, launches {launches}")
+    print(f"  {arch}: {row['tokens_per_s']:.1f} tok/s, decode step "
+          f"{step_med:.2f} ms, device busy {busy:.3f} ms, idle share "
+          f"{row['idle_share']:.3f}, {row['kernel_launches_per_step']:.0f} "
+          f"launches a decode step ({serve_launches(cfg, 0, 1)} of the "
+          f"kernels), peak {peak:.2f} GiB; {row['card']}", flush=True)
+    del params, cache, logits, batch, stub
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def modal_f32(arch: str, layers: int = None, prompts=(8, 64),
+              n_new: int = 16) -> dict:
+    """Phase 15: the f32 greedy tokens of the kernel and plain paths,
+    identical, on each prompt with its own frames or patches from the
+    seed; at full depth, or ``layers`` deep."""
+    import numpy as np
+    import torch
+    from repro_torch.models import api, get_config
+    cfg = get_config(arch).replace(dtype="float32")
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    print(f"== phase 15: {arch} at full width in f32, {cfg.num_layers} "
+          f"layers, kernel path vs plain path", flush=True)
+    params = api.init(0, cfg, device="cuda")
+    gib = torch.cuda.memory_allocated() / 2 ** 30
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rng = np.random.default_rng(1)
+    rows = []
+    for n in prompts:
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, n),
+                                 device="cuda")
+        stub = modal_stub(cfg, 1, "cuda", gen)
+        got, gaps = _greedy(api, cfg, params, prompt, n_new, stub)
+        want, _ = _greedy(api, cfg.replace(use_kernels=False), params,
+                          prompt, n_new, stub)
+        parted = next((j for j, (a, b) in enumerate(zip(got, want))
+                       if a != b), None)
+        shown = ", ".join(f"{k} {tuple(v.shape)}" for k, v in stub.items())
+        print(f"  prompt {n} (+ {shown}): kernel path {got[:8]}..., "
+              f"identical: {parted is None}, smallest top-2 gap "
+              f"{min(gaps):.3e}")
+        check(parted is None, f"{arch} f32 paths part at step {parted}: "
+                              f"top-2 gap there {gaps[parted or 0]:.3e}")
+        rows.append({"prompt": n, "identical": True,
+                     "smallest_top2_gap": min(gaps)})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "gib": gib, "prompts": rows}
+
+
+def phase_modal():
+    """Phase 15.  Returns (numbers, {path: launches})."""
+    t0 = time.perf_counter()
+    print(f"== phase 15: the enc-dec and VLM families, {ENCDEC_ARCH} "
+          f"(served, trained) and {VLM_ARCH} (served; its step traced on "
+          f"meta)", flush=True)
+    out, launches = {}, {}
+    fresh_card(15)
+    print(f"== phase 15 (a): serve {ENCDEC_ARCH} at full width", flush=True)
+    out["whisper_serve"] = modal_serve(ENCDEC_ARCH, probe=False,
+                                       **ENCDEC_SERVE)
+    launches[ENCDEC_ARCH] = out["whisper_serve"]["launches"]
+    fresh_card(15)
+    out["whisper_f32"] = modal_f32(ENCDEC_ARCH)
+    fresh_card(15)
+    out["whisper_train"], launches[f"{ENCDEC_ARCH}_train"] = phase_train(
+        ENCDEC_ARCH, 15, ENCDEC_TRAIN, ENCDEC_GRAD)
+    fresh_card(15)
+    print(f"== phase 15 (c): serve {VLM_ARCH} at full width", flush=True)
+    out["llava_serve"] = modal_serve(VLM_ARCH, probe=True, **VLM_SERVE)
+    launches[VLM_ARCH] = out["llava_serve"]["launches"]
+    fresh_card(15)
+    out["llava_f32"] = modal_f32(VLM_ARCH, VLM_F32_LAYERS, prompts=(64, 211))
+    print(f"== phase 15 (d): {VLM_ARCH}'s train step on meta", flush=True)
+    out["analysis"] = meta_trace(VLM_ARCH)
+    out["train_smoke"] = {}
+    for arch in MODAL_SMOKE_TRAIN:
+        fresh_card(15)
+        out["train_smoke"][arch], launches[f"{arch}_train"] = \
+            smoke_train(arch)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 15: {out['seconds']:.1f} s", flush=True)
+    return out, launches
+
+
 def _paths(tree, prefix=()):
     """The key paths of a nested dict, in ``optim.leaves`` order."""
     if isinstance(tree, dict):
@@ -2612,7 +2976,9 @@ def main() -> int:
     dense_configs, dense_launches = phase_dense_configs()
     hybrid, hybrid_launches = phase_hybrid()
     moe, moe_launches = phase_moe()
-    new_paths = {**dense_launches, **hybrid_launches, **moe_launches}
+    modal, modal_launches = phase_modal()
+    new_paths = {**dense_launches, **hybrid_launches, **moe_launches,
+                 **modal_launches}
     # (shape, dtype) of each kernel's row in the kernels line
     H, W, K, _ = STENCIL_CASES[0]
     L, size, dist, _, _ = BITONIC_CASES[0]
@@ -2704,6 +3070,7 @@ def main() -> int:
          "mgmark": mgmark_rows, "mgmark_simulated": mgmark_sim,
          "train": train, **loop_phase, "mamba": mamba, "sim": sim,
          "dense_configs": dense_configs, "hybrid": hybrid, "moe": moe,
+         "modal": modal,
          "card": card(), "seconds": time.perf_counter() - t0},
         indent=1))
     smi = card()

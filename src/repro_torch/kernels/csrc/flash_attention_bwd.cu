@@ -27,11 +27,25 @@
 //
 // bf16: tensor cores (namespace tc below), on every head width the
 // wrapper takes (16, 32, 64, 128).
-//  (a) flash_bwd_prep: one warp per (batch, head, row) writes the pair
-//      (lse * log2 e, D) into an f32 scratch whose rows are padded to a
+//  (a) flash_bwd_prep: one thread per (batch, head, row) writes the pair
+//      (lse * log2 e, 0) into an f32 scratch whose rows are padded to a
 //      multiple of 64 with (+inf, 0), so a padded row's P is exp2(-inf) =
 //      0 without a mask, and a 64-row tile of pairs is one aligned bulk
-//      copy.
+//      copy.  Then flash_bwd_dq_tc<HD, true> (launch c's kernel without
+//      its dS and dQ) writes each row's D = sum_j P_j dP_j over all keys,
+//      from the P and dP the next two launches recompute, into the pairs.
+//      D = rowsum(dO * O) equals it only for the exact O: the forward's O
+//      is rounded to bf16, whose error in D, times each key's share of P,
+//      leaves sum_j dS_j = 0 off by it, and dQ = scale * sum_j dS_j K_j
+//      carries that times the keys' mean K.  Where keys and values share
+//      a large common part (whisper-base's cross-attention over 1500
+//      encoder states) O is about the values' mean, its rounding outgrows
+//      the spread of dP, and the bf16 gradients of wq and wk sat
+//      0.02-0.03 (L2, relative) farther from f32 than the plain path's;
+//      with this D the kernel path is within 1e-3 of the plain path's
+//      distance (an H100, chip_smoke.py phase 15 (b);
+//      tests/test_torch_tc_numerics.py shows the mechanism on the CPU).
+//      The D launch costs two of the seven products' worth again.
 //  (b) flash_bwd_dkdv_tc: a block of one warpgroup owns a 64-key tile of
 //      one kv-head; its K and V tiles come in once by TMA.  Per 64-row q
 //      tile, S^T = K Q^T and dP^T = V dO^T are wgmma m64n64k16 from shared
@@ -67,7 +81,8 @@
 //      q-head, batch row), heaviest q tiles first, as the forward: Q and
 //      dO in once by TMA, K and V streaming through two stages; S = Q K^T
 //      and dP = dO V^T from shared memory, dS in bf16 from registers, and
-//      dQ += dS K with K read MN-major.
+//      dQ += dS K with K read MN-major.  Its kDelta form runs first and
+//      sums D instead (see (a)).
 //  All four tiles (q, k, v, dO) come through 4-d tensor maps over the
 //  caller's (batch, seq, head) strides, so views of one fused projection
 //  are read in place; TMA's zero fill covers ragged S.  A refused copy
@@ -496,35 +511,17 @@ struct Cfg : Tile64<HD> {
                                kStages * kRowBytes + 64 + 1024;
 };
 
-// ---- (a) (lse log2 e, D) per row, rows padded to Sqp ------------------------
-// rl[(b * H + h) * Sqp + i] = (lse * log2 e, rowsum(dO * O)) for i < Sq and
-// (+inf, 0) for Sq <= i < Sqp.
+// ---- (a) (lse log2 e, 0) per row, rows padded to Sqp --------------------
+// rl[(b * H + h) * Sqp + i] = (lse * log2 e, 0) for i < Sq and (+inf, 0)
+// for Sq <= i < Sqp; the D launch fills in the second of each pair.
 __global__ void __launch_bounds__(kPrepWarps * 32)
-    flash_bwd_prep(const __nv_bfloat16* __restrict__ o,
-                   const __nv_bfloat16* __restrict__ dout,
-                   const float* __restrict__ lse, float2* __restrict__ rl,
-                   int H, int Sq, int Sqp, int hd, long long o_sb,
-                   long long o_ss, long long o_sh, long long d_sb,
-                   long long d_ss, long long d_sh, long long rows) {
-  const long long row =
-      (long long)blockIdx.x * kPrepWarps + (threadIdx.x >> 5);
+    flash_bwd_prep(const float* __restrict__ lse, float2* __restrict__ rl,
+                   int Sq, int Sqp, long long rows) {
+  const long long row = (long long)blockIdx.x * kPrepWarps * 32 + threadIdx.x;
   if (row >= rows) return;
-  const int lane = threadIdx.x & 31;
   const int i = (int)(row % Sqp);
-  const long long bh = row / Sqp;
-  if (i >= Sq) {
-    if (lane == 0) rl[row] = make_float2(INFINITY, 0.f);
-    return;
-  }
-  const int h = (int)(bh % H);
-  const long long b = bh / H;
-  const __nv_bfloat16* orow = o + b * o_sb + i * o_ss + h * o_sh;
-  const __nv_bfloat16* drow = dout + b * d_sb + i * d_ss + h * d_sh;
-  float acc = 0.f;
-  for (int d = lane; d < hd; d += 32)
-    acc += __bfloat162float(orow[d]) * __bfloat162float(drow[d]);
-  acc = warp_sum(acc);
-  if (lane == 0) rl[row] = make_float2(lse[bh * Sq + i] * kLog2e, acc);
+  rl[row] = make_float2(i < Sq ? lse[row / Sqp * Sq + i] * kLog2e : INFINITY,
+                        0.f);
 }
 
 // Start the TMA loads of one 64-row tile from each of the maps ta and tb
@@ -722,15 +719,17 @@ __global__ void __launch_bounds__(kThreads)
   cluster_sync();   // no block leaves while another reads its stage
 }
 
-// ---- (c) dQ ---------------------------------------------------------------
-// grid (H, B, q tiles), block kThreads.
-template <int HD>
+// ---- (c) dQ, and with kDelta the D of (a) ----------------------------------
+// grid (H, B, q tiles), block kThreads.  kDelta: no dS and no dQ; each
+// row's D = sum_j P_j dP_j goes into the second float of its pair in rl
+// (read by the later launches; the lse half is only read).
+template <int HD, bool kDelta>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
                     const __grid_constant__ CUtensorMap tdo,
-                    const float2* __restrict__ rl,
+                    float2* __restrict__ rl,
                     __nv_bfloat16* __restrict__ dq, int H, int K, int Sq,
                     int Sqp, int Skv, float scale, float scale_log2,
                     int causal) {
@@ -768,13 +767,14 @@ __global__ void __launch_bounds__(kThreads)
 
   const int row0 = q0 + 16 * warp + (lane >> 2);   // rows row0, row0 + 8
   const int col0 = 2 * (lane & 3);
-  const float2* rrow = rl + ((size_t)b * H + h) * Sqp;
+  float2* rrow = rl + ((size_t)b * H + h) * Sqp;
   const float2 r0 = rrow[row0], r1 = rrow[row0 + 8];   // < Sqp: padded
   const float lse2[2] = {r0.x, r1.x}, dd[2] = {r0.y, r1.y};
 
-  float acc[HD / 2];
+  float acc[HD / 2];                 // dQ (left dead, and cut, by kDelta)
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  float dsum[2] = {0.f, 0.f};                      // kDelta: D of the rows
 
   mbar_wait(bar_q, 0);
   for (int t = 0; t < ntiles; ++t) {
@@ -804,6 +804,23 @@ __global__ void __launch_bounds__(kThreads)
     // ---- dS = P (dP - D), masked on the diagonal and past Skv ----
     const int k0 = t * kBM;
     const bool edge = k0 + kBM > Skv || (causal && k0 + kBM - 1 > q0);
+    if constexpr (kDelta) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        float p = exp2f(fmaf(sc[i], scale_log2, -lse2[r]));
+        if (edge) {
+          const int kj = k0 + 8 * (i >> 2) + col0 + (i & 1);
+          if (kj >= Skv || (causal && kj > row0 + 8 * r)) p = 0.f;
+        }
+        dsum[r] = fmaf(p, dp[i], dsum[r]);
+      }
+      __syncthreads();
+      if (tid == 0 && t + kStages < ntiles)
+        load_tiles<HD>(&tk, &tv, sk, sv, bar_st + 8 * s, kvh,
+                       (t + kStages) * kBM, b, nullptr, 0);
+      continue;
+    }
     uint32_t dsa[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
@@ -839,6 +856,17 @@ __global__ void __launch_bounds__(kThreads)
                      (t + kStages) * kBM, b, nullptr, 0);
   }
 
+  if constexpr (kDelta) {
+    // a row's 64 columns lie in the quad of lanes 4 (l / 4) .. + 3
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float v = dsum[r];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if ((lane & 3) == 0) rrow[row0 + 8 * r].y = v;
+    }
+    return;
+  }
   // ---- scale dQ, in bf16; dq is (B, Sq, H, hd) contiguous ----
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -872,10 +900,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const int Sqp = (Sq + kBM - 1) / kBM * kBM;
   float2* rl = reinterpret_cast<float2*>(scratch);
   const long long rows = (long long)B * H * Sqp;
-  flash_bwd_prep<<<(unsigned)((rows + kPrepWarps - 1) / kPrepWarps),
-                   kPrepWarps * 32, 0, stream>>>(
-      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, rl,
-      H, Sq, Sqp, HD, sp[9], sp[10], sp[11], sp[12], sp[13], sp[14], rows);
+  const long long per = kPrepWarps * 32;
+  flash_bwd_prep<<<(unsigned)((rows + per - 1) / per), (unsigned)per, 0,
+                   stream>>>(lse, rl, Sq, Sqp, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -890,6 +917,17 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
   // Above 48 KB a block's shared memory has to be opted into (per kernel
   // and device, so on every launch).
+  const dim3 q_grid(H, B, (Sq + kBM - 1) / kBM);
+  auto d_kernel = flash_bwd_dq_tc<HD, true>;
+  err = cudaFuncSetAttribute(
+      d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return err;
+  d_kernel<<<q_grid, kThreads, C::kSmem, stream>>>(
+      tq, tk, tv, tdo, rl, static_cast<bf16*>(dq), H, K, Sq, Sqp, Skv, scale,
+      sl2, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
   auto kv_kernel = flash_bwd_dkdv_tc<HD>;
   err = cudaFuncSetAttribute(
       kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
@@ -914,13 +952,13 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto q_kernel = flash_bwd_dq_tc<HD>;
+  auto q_kernel = flash_bwd_dq_tc<HD, false>;
   err = cudaFuncSetAttribute(
       q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return err;
-  q_kernel<<<dim3(H, B, (Sq + kBM - 1) / kBM), kThreads, C::kSmem,
-             stream>>>(tq, tk, tv, tdo, rl, static_cast<bf16*>(dq), H, K, Sq,
-                       Sqp, Skv, scale, sl2, causal);
+  q_kernel<<<q_grid, kThreads, C::kSmem, stream>>>(
+      tq, tk, tv, tdo, rl, static_cast<bf16*>(dq), H, K, Sq, Sqp, Skv, scale,
+      sl2, causal);
   return cudaGetLastError();
 }
 
@@ -952,7 +990,8 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 // also needs q, k, v and dout on TMA's grid (16-byte aligned, strides in
 // multiples of 8 elements) and `cluster`, the blocks that share a
 // kv-head's q-heads in the dK/dV launch: a divisor of H / K, at most 8.
-// Three launches on `stream`; returns the first cudaError_t.
+// Three launches on `stream` (f32) or four (bf16); returns the first
+// cudaError_t.
 extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k,
                                    const void* v, const void* o,
                                    const float* lse, const void* dout,

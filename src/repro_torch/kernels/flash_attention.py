@@ -10,10 +10,12 @@ through tensor maps over the tensors' own strides.  f32 keeps the
 CUDA-core kernel (its 2e-5 gate rules out TF32).  Asked for, it also
 stores each row's log-sum-exp, which the backward reads.  The backward
 (no TPU counterpart: the JAX package differentiates plain jnp) takes
-three launches; in bf16 its dK/dV and dQ launches run every product as
-wgmma on tiles brought in by TMA, the G q-heads of a kv-head split over
-the blocks of a thread-block cluster that sum their partial dK and dV
-through distributed shared memory; f32 keeps the CUDA-core kernels.  The design notes are at the top of the
+three launches in f32 and four in bf16, whose D, dK/dV and dQ launches
+run every product as wgmma on tiles brought in by TMA (D = sum_j P_j
+dP_j from the backward's own P, not from the bf16 output), the G
+q-heads of a kv-head split over the blocks of a thread-block cluster
+that sum their partial dK and dV through distributed shared memory; f32
+keeps the CUDA-core kernels.  The design notes are at the top of the
 sources.  This module checks what the kernels take and raises on
 anything else; it never copies q, k or v.  The public wrappers with the
 launch counters are ``ops.flash_attention`` and
@@ -112,12 +114,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Gradients (dq, dk, dv) of ``flash_attention(q, k, v, causal)`` for
     the incoming gradient ``do`` of its output ``o``, from the forward's
     ``lse`` (B,H,Sq) f32: the arithmetic of
-    ``ref.flash_attention_bwd_ref``, three launches.  q, k, v as the
-    forward takes them (any (batch, seq, head) strides, last dim
-    contiguous; bf16 also on TMA's grid, ``check_tma_operands``); o and do
-    of q's shape and dtype; do is made contiguous (a copy only if it is
-    not, or if it does not start on TMA's 16-byte grid).  dq, dk and dv
-    come back contiguous, in q's dtype."""
+    ``ref.flash_attention_bwd_ref``, three launches (four in bf16).  q,
+    k, v as the forward takes them (any (batch, seq, head) strides, last
+    dim contiguous; bf16 also on TMA's grid, ``check_tma_operands``); o
+    and do of q's shape and dtype; do is made contiguous (a copy only if
+    it is not, or if it does not start on TMA's 16-byte grid).  dq, dk
+    and dv come back contiguous, in q's dtype."""
     _check_qkv(q, k, v, causal, "flash_attention_bwd")
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]

@@ -202,8 +202,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
     """Gradients (dq, dk, dv) of ``flash_attention`` from its output o,
     its log-sum-exp lse (B,H,Sq) f32 and the incoming do, in the inputs'
     dtypes (``ref.flash_attention_bwd_ref``; three launches on the card,
-    counted as one call; bf16 on the tensor cores, whose q, k, v must lie
-    on TMA's grid as the forward's do)."""
+    four in bf16, counted as one call; bf16 on the tensor cores, whose q,
+    k, v must lie on TMA's grid as the forward's do)."""
     if _on_cpu(q, k, v, o, lse, do):
         return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
     return _kernel(flash_attention_bwd, _fa.flash_attention_bwd, _fa_bwd_meta,

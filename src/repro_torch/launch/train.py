@@ -30,7 +30,7 @@ from repro_torch import resolve_device
 from repro_torch.models import api, get_config
 from repro_torch.sharding import umode
 from repro_torch.train import optim
-from repro_torch.train.data import DataConfig, SyntheticLM
+from repro_torch.train.data import DataConfig, SyntheticLM, model_batch
 from repro_torch.train.loop import LoopConfig, run as loop_run
 from .mesh import make_mesh
 
@@ -38,7 +38,8 @@ from .mesh import make_mesh
 def run(cfg, data_cfg: DataConfig, opt_cfg: optim.OptConfig, steps: int,
         device="cuda", log=print):
     """Init params from seed 0 and take ``steps`` AdamW steps on
-    ``SyntheticLM(data_cfg)``'s batches 0, 1, ...  Returns (state, one
+    ``SyntheticLM(data_cfg)``'s batches 0, 1, ... (an enc-dec's or VLM's
+    with their frames or patches, ``data.model_batch``).  Returns (state, one
     record per step: step, loss, grad_norm, lr, step_ms, tokens_per_s).
     A step's time runs from handing the numpy batch to the step to its
     loss on the host (which waits for the device)."""
@@ -49,7 +50,7 @@ def run(cfg, data_cfg: DataConfig, opt_cfg: optim.OptConfig, steps: int,
     tokens = data_cfg.global_batch * data_cfg.seq_len
     records = []
     for i in range(steps):
-        batch = data.global_batch(i)
+        batch = model_batch(cfg, data, i)
         t0 = time.perf_counter()
         state, m = step_fn(state, batch)
         loss = float(m["loss"])

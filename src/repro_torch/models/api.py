@@ -1,6 +1,7 @@
-"""Unified model facade (port of ``repro/models/api.py``) for the dense and
-MoE families (``transformer``), the SSM family (``mamba_lm``) and the
-hybrid family (``hybrid``).  The same entry points as the reference:
+"""Unified model facade (port of ``repro/models/api.py``) for all six
+families of the reference: dense and MoE (``transformer``), VLM
+(``vlm``), enc-dec (``encdec``), SSM (``mamba_lm``) and hybrid
+(``hybrid``).  The same entry points as the reference:
 
     init(seed, cfg, device)                     -> params
     loss(params, cfg, batch)                    -> scalar f32
@@ -9,25 +10,25 @@ hybrid family (``hybrid``).  The same entry points as the reference:
     prefill(params, cfg, cache, batch)          -> (last_logits, cache)
     decode_step(params, cfg, cache, tok)        -> (logits, cache)
 
-``init`` and ``init_cache`` place their tensors on ``device`` ("cuda"
-unless the caller asks for the CPU); the others run where their inputs
-lie.  The enc-dec and VLM families raise NotImplementedError until
-their slice is ported.
+``batch`` carries the modality stubs under the reference's keys:
+"frames" (the enc-dec's audio frames, (B, encoder_seq, d)) and
+"patches" (the VLM's image patches, (B, num_patches, d)).  ``init`` and
+``init_cache`` place their tensors on ``device`` ("cuda" unless the
+caller asks for the CPU); the others run where their inputs lie.
 """
 from __future__ import annotations
 
-from . import hybrid, mamba_lm, moe, transformer
+from . import encdec, hybrid, mamba_lm, moe, transformer, vlm
 from .base import ModelConfig
 
-_FAMILY = {"dense": transformer, "moe": transformer, "ssm": mamba_lm,
-           "hybrid": hybrid}
+_FAMILY = {"dense": transformer, "moe": transformer, "vlm": vlm,
+           "encdec": encdec, "ssm": mamba_lm, "hybrid": hybrid}
 
 
 def module_for(cfg: ModelConfig):
     if cfg.family not in _FAMILY:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; the "
-            f"port has {sorted(_FAMILY)}")
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; the "
+                         f"families are {sorted(_FAMILY)}")
     return _FAMILY[cfg.family]
 
 
@@ -39,8 +40,19 @@ def loss(params, cfg: ModelConfig, batch):
     return module_for(cfg).loss_fn(params, cfg, batch)
 
 
+# family -> the batch key of the modality stub its forward and prefill
+# take after the tokens
+STUB_KEYS = {"encdec": "frames", "vlm": "patches"}
+
+
+def _extra(cfg: ModelConfig, batch) -> tuple:
+    key = STUB_KEYS.get(cfg.family)
+    return () if key is None else (batch[key],)
+
+
 def forward(params, cfg: ModelConfig, batch):
-    return module_for(cfg).forward(params, cfg, batch["tokens"])
+    return module_for(cfg).forward(params, cfg, batch["tokens"],
+                                   *_extra(cfg, batch))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
@@ -50,7 +62,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
 
 
 def prefill(params, cfg: ModelConfig, cache, batch):
-    return module_for(cfg).prefill(params, cfg, batch["tokens"], cache)
+    return module_for(cfg).prefill(params, cfg, batch["tokens"], cache,
+                                   *_extra(cfg, batch))
 
 
 def decode_step(params, cfg: ModelConfig, cache, token):
@@ -68,6 +81,9 @@ def train_step_matmul_flops(cfg: ModelConfig, batch: int, seq: int) -> int:
     kernels') of one train step of ``cfg`` at ``batch`` x ``seq`` tokens:
     each forward product and its two backward ones (dX and dW).  This is
     the count ``core.hlo.matmul_flops`` of a traced step must equal.
+    ``seq`` is the tokens' length: a VLM's layers run over
+    ``num_patches`` more positions, an enc-dec's encoder over
+    ``encoder_seq`` frames.
 
     Per layer: the projections and the MLP, or the MoE's f32 router and
     its experts over every one of the E x C capacity slots (dump slots
@@ -75,16 +91,33 @@ def train_step_matmul_flops(cfg: ModelConfig, batch: int, seq: int) -> int:
     materialised QK^T and P V where attention is not the flash kernel
     (``attn_impl="ref"``); an SSM layer's in and out projections and the
     SSD's carry-in term ``y_off`` (over the chunk-padded sequence; with
-    two chunks or more, so that its state input takes a gradient).  Then
-    the unembedding, done once more in the backward where the chunked
-    loss recomputes each chunk's logits (on the sequence padded to
-    ``transformer.XENT_CHUNK``)."""
+    two chunks or more, so that its state input takes a gradient); an
+    enc-dec's encoder layers over the frames, and its decoder layers'
+    self-attention, cross-attention (q and out projections over the
+    tokens, k and v over the encoder states, QK^T and P V over tokens x
+    frames where not flash) and two-matrix gelu MLP.  Then the
+    unembedding over the text positions, done once more in the backward
+    where the chunked loss recomputes each chunk's logits (on the
+    sequence padded to ``transformer.XENT_CHUNK``)."""
     B, S, d, T = batch, seq, cfg.d_model, batch * seq
     Vp = cfg.padded_vocab
     proj = d * (2 * cfg.q_dim + 2 * cfg.kv_dim)
-    core = (0 if cfg.attn_impl == "flash" else
-            2 * 2 * B * cfg.num_heads * S * S * cfg.hd)
-    attn_block = 2 * T * (proj + 3 * d * cfg.d_ff) + core
+
+    def core(sq: int, skv: int) -> int:
+        return (0 if cfg.attn_impl == "flash" else
+                2 * 2 * B * cfg.num_heads * sq * skv * cfg.hd)
+    if cfg.family == "encdec":
+        Te = cfg.encoder_seq
+        mlp = 2 * d * cfg.d_ff
+        enc_layer = 2 * B * Te * (proj + mlp) + core(Te, Te)
+        dec_layer = (2 * T * (proj + mlp) + core(S, S)
+                     + 2 * T * 2 * d * cfg.q_dim
+                     + 2 * B * Te * 2 * d * cfg.kv_dim + core(S, Te))
+        return 3 * (cfg.encoder_layers * enc_layer
+                    + cfg.num_layers * dec_layer + 2 * T * d * Vp)
+    S_all = S + (cfg.num_patches if cfg.family == "vlm" else 0)
+    attn_block = 2 * B * S_all * (proj + 3 * d * cfg.d_ff) + core(S_all,
+                                                                   S_all)
     if cfg.family in ("ssm", "hybrid"):
         H, N, P = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
         Q = min(cfg.ssm_chunk, S)
@@ -103,7 +136,7 @@ def train_step_matmul_flops(cfg: ModelConfig, batch: int, seq: int) -> int:
         E, Gr = cfg.num_experts, cfg.moe_groups
         slots = (E * Gr * moe.capacity(T // Gr, cfg)
                  if Gr > 1 and T % Gr == 0 else E * moe.capacity(T, cfg))
-        layer = (2 * T * (proj + d * E) + core
+        layer = (2 * T * (proj + d * E) + core(S, S)
                  + 2 * slots * 3 * d * cfg.d_ff)
     else:
         layer = attn_block

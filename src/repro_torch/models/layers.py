@@ -9,9 +9,9 @@ axis, and every module is ``init_*(gen, cfg, device) -> params`` plus
 ``rms_norm`` (and its fused forms ``add_rms_norm`` and
 ``gated_rms_norm``) and ``attn_impl="flash"`` go through the hand-written
 kernels (``repro_torch.kernels.ops``) when ``cfg.use_kernels``, else
-through their plain versions.  The projections, the MLP, decode
-attention and ``unembed`` are plain tensor code, as the reference leaves
-them to XLA.
+through their plain versions.  The projections, the MLPs (SwiGLU and
+the enc-dec's gelu), the sinusoidal positions, decode self-attention and
+``unembed`` are plain tensor code, as the reference leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -166,6 +166,23 @@ def apply_rope(x, angles):
     return out.to(x.dtype)
 
 
+def sinusoidal_pos(seq_len: int, d_model: int, dtype, device="cpu",
+                   positions=None):
+    """(seq_len, d_model) sinusoidal position table in ``dtype``: angle
+    pos / 10000^(2i / d_model) in f32, sin at even columns and cos at odd
+    ones (``repro/models/layers.py:79``).  With ``positions`` (an int
+    tensor of any length) only those rows of the table, computed the
+    same way."""
+    if positions is None:
+        positions = torch.arange(seq_len, device=device)
+    pos = positions.to(torch.float32)[:, None]
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32,
+                       device=pos.device)[None, :]
+    angle = pos / torch.pow(10000.0, dim / d_model)
+    pe = torch.stack([torch.sin(angle), torch.cos(angle)], dim=-1)
+    return pe.reshape(pos.shape[0], d_model).to(dtype)
+
+
 # --------------------------------------------------------------------------
 # attention
 # --------------------------------------------------------------------------
@@ -212,15 +229,19 @@ def attention_core(q, k, v, mask=None, causal: bool = False,
     mask: broadcastable to (B,1,1,S,T) boolean (True = attend) or None.
     impl: "ref" (materialized scores) or "flash" (the flash-attention
     kernel, or its plain version when not ``use_kernel``); "flash" is
-    taken for causal self-attention without a mask, where S == T.
+    taken for every call without a mask: causal self-attention, where
+    S == T, and non-causal attention at any S and T (an encoder's, and
+    cross-attention).  The reference routes only the causal calls to its
+    kernel (``repro/models/layers.py:182``), though that kernel takes
+    non-causal ones too: the function is the same.
     """
     if impl not in ("ref", "flash"):
         raise ValueError(f"attn_impl {impl!r}: the port has 'ref' and "
                          f"'flash'")
-    if impl == "flash" and mask is None and causal:
+    if impl == "flash" and mask is None:
         if use_kernel:
-            return kops.flash_attention(q, k, v, causal=True)
-        return kref.flash_attention_ref(q, k, v, causal=True)
+            return kops.flash_attention(q, k, v, causal=causal)
+        return kref.flash_attention_ref(q, k, v, causal=causal)
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
@@ -238,7 +259,7 @@ def attention_core(q, k, v, mask=None, causal: bool = False,
 
 
 def attention_block(p: Params, x, cfg, positions=None, causal=True,
-                    kv_cache=None, cache_pos=None):
+                    kv_cache=None, cache_pos=None, kv_override=None):
     """Full attention block: qkv -> core -> output proj.
 
     Train / prefill: kv_cache None -> self attention over x.
@@ -246,9 +267,23 @@ def attention_block(p: Params, x, cfg, positions=None, causal=True,
     tokens' k/v are written at ``cache_pos`` (scalar or (B,) per slot)
     and attention masks t <= pos.  The cache is updated IN PLACE (the
     reference returns a new one), which saves copying it every step.
-    Returns (out, (k, v)): the new k/v, or the updated cache.
+    Cross-attention: kv_override = (k, v) precomputed from the encoder;
+    only q is projected, and the core is non-causal.
+    Returns (out, (k, v)): the new k/v, or the updated cache; None for
+    cross-attention.
     """
     B, S, _ = x.shape
+    if kv_override is not None:
+        q = x @ p["wq"]
+        if "bq" in p:
+            q = q + p["bq"]
+        q = q.reshape(B, S, cfg.num_heads, cfg.hd)
+        if positions is not None:
+            q = apply_rope(q, rope_angles(positions, cfg.hd, cfg.rope_theta))
+        k, v = kv_override
+        out = attention_core(q, k, v, causal=False, impl=cfg.attn_impl,
+                             use_kernel=cfg.use_kernels)
+        return out.reshape(B, S, -1) @ p["wo"], None
     q, k, v = qkv(p, x, cfg, positions)
     if kv_cache is None:
         out = attention_core(q, k, v, causal=causal, impl=cfg.attn_impl,
@@ -293,6 +328,19 @@ def init_swiglu(gen: torch.Generator, cfg, n_layers: int) -> Params:
 
 def swiglu(p: Params, x):
     return (torch.nn.functional.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+
+
+def init_gelu_mlp(gen: torch.Generator, cfg, n_layers: int) -> Params:
+    d, f, dt, n = cfg.d_model, cfg.d_ff, cfg.torch_dtype, n_layers
+    return {"w1": dense_init(gen, (n, d, f), dt),
+            "w2": dense_init(gen, (n, f, d), dt)}
+
+
+def gelu_mlp(p: Params, x):
+    """The enc-dec's two-matrix MLP.  ``jax.nn.gelu`` defaults to the tanh
+    approximation, torch's gelu to erf: the reference's is the tanh one."""
+    return torch.nn.functional.gelu(x @ p["w1"], approximate="tanh") \
+        @ p["w2"]
 
 
 # --------------------------------------------------------------------------

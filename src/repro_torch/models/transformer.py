@@ -2,7 +2,8 @@
 ``repro/models/transformer.py``): qwen2-1.5b, qwen1.5-4b, qwen1.5-110b,
 internlm2-20b (dense, a SwiGLU MLP a layer) and qwen3-moe-30b-a3b,
 dbrx-132b (moe, ``moe.moe_ffn`` in the MLP's place, whose load-balancing
-term the loss adds).
+term the loss adds); also the backbone of the VLM family (``vlm.py``,
+llava-next-34b: dense, with patch embeddings prepended to the text).
 
 Layer params are stacked on a leading axis, as in the reference; the
 forward loops over layers in Python where the reference scans.
@@ -25,9 +26,9 @@ Params = typing.Dict[str, typing.Any]
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(f"{cfg.name}: family {cfg.family!r} is no "
-                         f"decoder-only transformer (dense or moe)")
+                         f"decoder-only transformer (dense, moe or vlm)")
 
 
 # --------------------------------------------------------------------------
@@ -93,11 +94,16 @@ def _layer_fwd(lp: Params, h, r, cfg: ModelConfig, positions):
     return h, y, kv, aux
 
 
-def _hidden(p: Params, cfg: ModelConfig, tokens):
+def _hidden(p: Params, cfg: ModelConfig, tokens, extra_embeds=None):
     """Final-normed hidden states (B,S,d), per-layer (k, v) and the sum of
-    the layers' aux terms (0.0 for a dense model)."""
+    the layers' aux terms (0.0 for a dense model).  ``extra_embeds``
+    (B,P,d), cast to the model's dtype, are prepended to the tokens'
+    embeddings: S = P + the tokens' length, positions from 0 at the
+    first of them."""
     _check_family(cfg)
     h = L.embed(p, tokens)
+    if extra_embeds is not None:
+        h = torch.cat([extra_embeds.to(h.dtype), h], dim=1)
     positions = torch.arange(h.shape[1], device=h.device)
     kvs, r, aux = [], None, 0.0
     for lp in L.layer_slices(p["layers"], cfg.num_layers):
@@ -109,10 +115,11 @@ def _hidden(p: Params, cfg: ModelConfig, tokens):
     return _add_norm(h, r, p["ln_f"], cfg)[1], kvs, aux
 
 
-def forward(p: Params, cfg: ModelConfig, tokens):
-    """tokens (B,S) int -> (logits (B,S,V) f32, aux): aux is the layers'
-    summed MoE load-balancing term, 0.0 for a dense model."""
-    h, _, aux = _hidden(p, cfg, tokens)
+def forward(p: Params, cfg: ModelConfig, tokens, extra_embeds=None):
+    """tokens (B,S) int [, extra_embeds (B,P,d) prepended] -> (logits
+    (B,P+S,V) f32, aux): aux is the layers' summed MoE load-balancing
+    term, 0.0 for a dense model."""
+    h, _, aux = _hidden(p, cfg, tokens, extra_embeds)
     return L.unembed(p, h, cfg), aux
 
 
@@ -158,18 +165,22 @@ def _chunked_xent(p: Params, cfg: ModelConfig, h, targets, mask=None,
 
 
 def loss_fn(p: Params, cfg: ModelConfig, batch, aux_weight: float = 0.01):
-    """Mean next-token NLL of ``batch`` ({"tokens", "targets"[, "mask"]});
-    chunked (``_chunked_xent``) once ``padded_vocab * S`` reaches
-    ``XENT_CHUNK_THRESHOLD``.  A MoE model adds ``aux_weight`` times its
-    load-balancing term; a dense model adds nothing."""
-    h, _, aux = _hidden(p, cfg, batch["tokens"])
+    """Mean next-token NLL of ``batch`` ({"tokens", "targets"[, "mask",
+    "patches"]}); chunked (``_chunked_xent``) once ``padded_vocab * S``
+    reaches ``XENT_CHUNK_THRESHOLD``.  With "patches" (the VLM) they are
+    prepended and the loss is taken on the text positions only, the
+    chunking switch on their count.  A MoE model adds ``aux_weight`` times
+    its load-balancing term; the others add nothing."""
+    tgt = batch["targets"]
+    h, _, aux = _hidden(p, cfg, batch["tokens"], batch.get("patches"))
+    if h.shape[1] != tgt.shape[1]:              # VLM: the text positions
+        h = h[:, -tgt.shape[1]:]
     if cfg.padded_vocab * h.shape[1] >= XENT_CHUNK_THRESHOLD:
-        nll = _chunked_xent(p, cfg, h, batch["targets"], batch.get("mask"),
-                            XENT_CHUNK)
+        nll = _chunked_xent(p, cfg, h, tgt, batch.get("mask"), XENT_CHUNK)
     else:
         logits = L.unembed(p, h, cfg)
-        nll = L.cross_entropy(logits, batch["targets"], batch.get("mask"))
-    return nll if cfg.family == "dense" else nll + aux_weight * aux
+        nll = L.cross_entropy(logits, tgt, batch.get("mask"))
+    return nll + aux_weight * aux if cfg.family == "moe" else nll
 
 
 # --------------------------------------------------------------------------
@@ -187,11 +198,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def prefill(p: Params, cfg: ModelConfig, tokens, cache: dict):
-    """Run the prompt, fill the cache IN PLACE (rows [0, S)), return the
-    logits of the last position and the cache with ``pos = S``."""
-    h, kvs, _ = _hidden(p, cfg, tokens)
-    S = tokens.shape[1]
+def prefill(p: Params, cfg: ModelConfig, tokens, cache: dict,
+            extra_embeds=None):
+    """Run the prompt (``extra_embeds`` prepended, as in ``_hidden``),
+    fill the cache IN PLACE (rows [0, S), S counting the extra rows),
+    return the logits of the last position and the cache with
+    ``pos = S``."""
+    h, kvs, _ = _hidden(p, cfg, tokens, extra_embeds)
+    S = h.shape[1]
     for i, (k, v) in enumerate(kvs):
         cache["k"][i, :, :S] = k
         cache["v"][i, :, :S] = v

@@ -26,11 +26,11 @@ from repro_torch.models import api
 from repro_torch.models.base import ModelConfig
 
 
-# cache leaf -> batch axis (the reference's tables: the transformer and
-# SSM layouts, and the hybrid's, whose SSM states and conv tails are
-# stacked (G, attn_every, B, ...))
-_BATCH_AXIS = {"k": 1, "v": 1, "ssm": 1, "conv": 1, "ssm_tail": 1,
-               "conv_tail": 1}
+# cache leaf -> batch axis (the reference's tables: the transformer, SSM
+# and enc-dec layouts, and the hybrid's, whose SSM states and conv tails
+# are stacked (G, attn_every, B, ...))
+_BATCH_AXIS = {"k": 1, "v": 1, "xk": 1, "xv": 1, "ssm": 1, "conv": 1,
+               "ssm_tail": 1, "conv_tail": 1}
 _HYBRID_AXIS = {"k": 1, "v": 1, "ssm": 2, "conv": 2, "ssm_tail": 1,
                 "conv_tail": 1}
 
@@ -54,6 +54,14 @@ class Engine:
     def __init__(self, cfg: ModelConfig, params, slots: int = 4,
                  max_seq: int = 512, eos_token: int = -1,
                  device="cuda") -> None:
+        if cfg.family in api.STUB_KEYS:
+            # the reference's engine admits these and fails at the first
+            # prefill (a KeyError on the batch); the port refuses up front
+            raise ValueError(
+                f"{cfg.name}: the Engine hands prefill only a prompt's "
+                f"tokens, and the {cfg.family} family's prefill also takes "
+                f"{api.STUB_KEYS[cfg.family]!r}; serve it through "
+                f"api.init_cache, api.prefill and api.decode_step")
         self.cfg = cfg
         self.params = params
         self.slots = slots

@@ -78,3 +78,13 @@ def make_batch(cfg, cell, step: int = 0, seed: int = 0) -> dict:
             0, 0.02, (cell.global_batch, cfg.encoder_seq, cfg.d_model)
         ).astype(np.float32)
     return batch
+
+
+def model_batch(cfg, data: SyntheticLM, step: int) -> dict:
+    """``data``'s batch ``step`` for a model of ``cfg``: the plain token
+    batch, or for an enc-dec or VLM config ``make_batch``'s, which adds
+    the modality stub (and for the VLM keeps ``data.cfg.seq_len`` as the
+    whole sequence, patches and text)."""
+    if cfg.family not in ("encdec", "vlm"):
+        return data.global_batch(step)
+    return make_batch(cfg, data.cfg, step, seed=data.cfg.seed)

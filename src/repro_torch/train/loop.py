@@ -42,7 +42,7 @@ from repro_torch.models.base import ModelConfig
 from repro_torch.sharding import umode
 from . import optim
 from .checkpoint import CheckpointManager
-from .data import DataConfig, SyntheticLM
+from .data import DataConfig, SyntheticLM, model_batch
 
 
 @dataclasses.dataclass
@@ -139,7 +139,7 @@ def run(cfg: ModelConfig, mesh, data_cfg: DataConfig,
         try:
             if step in fault_schedule:
                 raise fault_schedule.pop(step)
-            batch = data.global_batch(step)
+            batch = model_batch(cfg, data, step)
             t0 = time.perf_counter()
             state, metrics = step_fn(state, batch)
             loss = float(metrics["loss"])

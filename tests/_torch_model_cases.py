@@ -1,8 +1,9 @@
 """Checks shared by the model-family parity files (tests/test_torch_
-{dense_configs,hybrid,moe}.py): one smoke config through the port's
-``repro_torch.models.api`` and the JAX package's ``repro.models.api`` on
-the same weights (``_torch_parity.shared_params``) and inputs drawn with
-numpy, f32 on the CPU.
+{dense_configs,hybrid,moe,encdec,vlm}.py): one smoke config through the
+port's ``repro_torch.models.api`` and the JAX package's
+``repro.models.api`` on the same weights (``_torch_parity.shared_params``)
+and inputs drawn with numpy, f32 on the CPU.  An enc-dec or VLM batch
+also carries its modality stub (``modal``: frames or patches).
 
 Tolerances: ATOL / RTOL 1e-4 on logits, caches and states (f32 model,
 sums taken in another order, as tests/test_torch_models.py and
@@ -39,6 +40,25 @@ NOT_CARRIED = {"remat", "scan_layers", "use_pallas", "seq_shard_activations",
 def tokens(arch, B, S, seed=1):
     return np.random.default_rng(seed).integers(
         0, get_config(arch).vocab_size, (B, S)).astype(np.int32)
+
+
+def modal(arch, B, seed=11):
+    """{"frames": (B, encoder_seq, d)} for an enc-dec arch, {"patches":
+    (B, num_patches, d)} for a VLM, {} otherwise: f32 from ``seed``."""
+    cfg = get_config(arch)
+    key, n = {"encdec": ("frames", cfg.encoder_seq),
+              "vlm": ("patches", cfg.num_patches)}.get(cfg.family,
+                                                      (None, 0))
+    if key is None:
+        return {}
+    return {key: np.random.default_rng(seed).standard_normal(
+        (B, n, cfg.d_model)).astype(np.float32)}
+
+
+def both(batch):
+    """A batch of numpy arrays as (jax arrays, torch tensors)."""
+    return ({k: jnp.asarray(v) for k, v in batch.items()},
+            {k: torch.from_numpy(np.array(v)) for k, v in batch.items()})
 
 
 def close(got, want, atol=ATOL, rtol=RTOL):
@@ -83,14 +103,15 @@ def check_layout(arch, params):
 
 
 def check_forward(arch, params, S, B=2):
+    """Logits (and aux) of S tokens, after the modality stub's rows for a
+    VLM."""
     jp, tp = params
-    toks = tokens(arch, B, S)
+    jb, tb = both({"tokens": tokens(arch, B, S), **modal(arch, B)})
     jcfg = jget_config(arch)
-    want, jaux = jax.jit(lambda p, t: japi.forward(p, jcfg, {"tokens": t}))(
-        jp, jnp.asarray(toks))
-    got, aux = api.forward(tp, get_config(arch),
-                           {"tokens": torch.from_numpy(toks)})
-    assert got.shape == (B, S, get_config(arch).padded_vocab)
+    want, jaux = jax.jit(lambda p, b: japi.forward(p, jcfg, b))(jp, jb)
+    got, aux = api.forward(tp, get_config(arch), tb)
+    extra = get_config(arch).num_patches if "patches" in tb else 0
+    assert got.shape == (B, extra + S, get_config(arch).padded_vocab)
     close(got, want)
     assert abs(float(aux) - float(jaux)) < ATOL
 
@@ -102,13 +123,11 @@ def check_loss_and_grads(arch, params, S=24, B=2):
     tgt = np.roll(toks, -1, axis=1)
     mask = (np.arange(S) < S - 4).astype(np.float32)[None].repeat(B, 0)
     jcfg = jget_config(arch)
-    jb = {"tokens": jnp.asarray(toks), "targets": jnp.asarray(tgt),
-          "mask": jnp.asarray(mask)}
+    jb, tb = both({"tokens": toks, "targets": tgt, "mask": mask,
+                   **modal(arch, B, seed=12)})
     want, jgrads = jax.jit(jax.value_and_grad(
         lambda p: japi.loss(p, jcfg, jb)))(jp)
-    got, grads = loss_and_grads(tp, get_config(arch),
-                                {k: torch.from_numpy(np.array(v))
-                                 for k, v in jb.items()})
+    got, grads = loss_and_grads(tp, get_config(arch), tb)
     assert abs(float(got) - float(want)) < ATOL
     assert_leaves_close(grads, jgrads, LEAF_TOL)
 
@@ -118,21 +137,26 @@ def check_prefill_decode(arch, params, S, B=2, max_seq=48, steps=4):
     logits and every cache leaf against the reference's."""
     jp, tp = params
     cfg, jcfg = get_config(arch), jget_config(arch)
-    toks = tokens(arch, B, S, seed=4)
+    jb, tb = both({"tokens": tokens(arch, B, S, seed=4),
+                   **modal(arch, B, seed=13)})
     jc = japi.init_cache(jcfg, B, max_seq)
-    want, jc = jax.jit(lambda p, c, t: japi.prefill(p, jcfg, c, {
-        "tokens": t}))(jp, jc, jnp.asarray(toks))
+    want, jc = jax.jit(lambda p, c, b: japi.prefill(p, jcfg, c, b))(
+        jp, jc, jb)
     tc = api.init_cache(cfg, B, max_seq, device="cpu")
-    got, tc = api.prefill(tp, cfg, tc, {"tokens": torch.from_numpy(toks)})
+    got, tc = api.prefill(tp, cfg, tc, tb)
     close(got, want)
     assert sorted(tc) == sorted(jc)
+    assert int(tc["pos"]) == int(jc["pos"])
+    for key in jc:
+        close(tc[key], jc[key])
     decode = jax.jit(lambda p, c, t: japi.decode_step(p, jcfg, c, t))
     for _ in range(steps):
         nxt = np.asarray(jnp.argmax(want, axis=-1), np.int32)
         want, jc = decode(jp, jc, jnp.asarray(nxt))
         got, tc = api.decode_step(tp, cfg, tc, torch.tensor(nxt).long())
         close(got, want)
-    assert int(tc["pos"]) == int(jc["pos"]) == S + steps
+    assert int(tc["pos"]) == int(jc["pos"]) == \
+        S + steps + (cfg.num_patches if "patches" in tb else 0)
     for key in jc:
         close(tc[key], jc[key])
 
@@ -163,11 +187,17 @@ def random_requests(arch, n, seed=0, lengths=(3, 9), max_new=7):
 
 
 def traced_step(cfg, B, S):
-    """One ``umode.make_train_step`` step of ``cfg`` traced on meta:
-    (its kernel ops, its matrix-product FLOPs)."""
+    """One ``umode.make_train_step`` step of ``cfg`` traced on meta, at B x
+    S tokens (and an enc-dec's or VLM's modality stub): (its kernel ops,
+    its matrix-product FLOPs)."""
     state = optim.init_state(api.init(0, cfg, device="meta"))
     batch = {k: torch.zeros((B, S), dtype=torch.int64, device="meta")
              for k in ("tokens", "targets")}
+    stub = {"encdec": ("frames", cfg.encoder_seq),
+            "vlm": ("patches", cfg.num_patches)}.get(cfg.family)
+    if stub is not None:
+        batch[stub[0]] = torch.zeros((B, stub[1], cfg.d_model),
+                                     device="meta")
     cost = hlo.analyze(umode.make_train_step(cfg, optim.OptConfig()), state,
                        batch)
     return hlo.kernel_ops(cost.trace), hlo.matmul_flops(cost)

@@ -14,8 +14,9 @@ from repro_torch.convert import params_from_jax
 # leaves the reference inits to a constant: base 1 (norm weights, the SSM
 # skip D) or base 0 (biases)
 _RANDOMISED = {"bq": 0.0, "bk": 0.0, "bv": 0.0, "conv_xb": 0.0,
-               "conv_bcb": 0.0, "ln1": 1.0, "ln2": 1.0, "ln_f": 1.0,
-               "ln": 1.0, "norm_w": 1.0, "D": 1.0}
+               "conv_bcb": 0.0, "ln1": 1.0, "ln2": 1.0, "ln3": 1.0,
+               "ln_enc": 1.0, "ln_f": 1.0, "ln": 1.0, "norm_w": 1.0,
+               "D": 1.0}
 
 
 def shared_params(arch="qwen2-1.5b-smoke", seed=0):

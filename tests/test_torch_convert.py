@@ -34,7 +34,8 @@ def test_bf16_leaves_convert_exactly():
     np.testing.assert_array_equal(got.float().numpy(), x.astype(np.float32))
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b-smoke"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b-smoke", "whisper-base-smoke",
+                                  "llava-next-34b-smoke"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_tree_keys_shapes_and_values_preserved(arch, dtype):
     cfg = jget_config(arch).replace(dtype=dtype)

@@ -1061,3 +1061,140 @@ def test_hybrid_and_moe_grads_through_the_kernels_match_plain(cuda, arch):
     for g, w in zip(got, want):
         err = float((g - w).abs().max())
         assert err <= 1e-4 * float(w.abs().max()), err
+
+
+# the enc-dec and VLM families' attention shapes at full width: whisper-
+# base's encoder (non-causal 1500 x 1500, MHA, hd 64), its cross-attention
+# at a decoder prefill (8 x 1500) and at decode (1 x 1500), llava-next-
+# 34b's causal prefill (2880 patches + 64 tokens, GQA 56:8, hd 128)
+MODAL_FLASH_SHAPES = [(4, 1500, 1500, 8, 8, 64, False),
+                      (4, 8, 1500, 8, 8, 64, False),
+                      (4, 1, 1500, 8, 8, 64, False),
+                      (1, 2944, 2944, 56, 8, 128, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal", MODAL_FLASH_SHAPES)
+def test_flash_kernel_matches_plain_at_encdec_and_vlm_shapes(
+        cuda, dtype, B, Sq, Skv, H, K, hd, causal):
+    """One q row or eight against 1500 keys: a 64-row bf16 tile holds
+    them and masks the rest, the q box runs past Sq, the log-sum-exp is
+    written for the live rows only."""
+    dt = getattr(torch, dtype)
+    q = _rand((B, Sq, H, hd), 90, dt, cuda)
+    k, v = _rand((B, Skv, K, hd), 91, dt, cuda), _rand((B, Skv, K, hd), 92,
+                                                       dt, cuda)
+    from repro_torch.kernels import flash_attention as fa
+    got, lse = fa.flash_attention(q, k, v, causal=causal, with_lse=True)
+    torch.cuda.synchronize()
+    _assert_close(got, ref.flash_attention_ref(q, k, v, causal=causal),
+                  F32 if dtype == "float32" else BF16)
+    _assert_close(lse, ref.flash_attention_lse_ref(q, k, v, causal),
+                  dict(atol=1e-4, rtol=1e-4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Skv", [(8, 1500, 1500), (8, 448, 1500)])
+def test_flash_bwd_kernel_matches_plain_at_whisper_shapes(cuda, dtype, B, Sq,
+                                                          Skv):
+    """whisper-base's training batch of 8 x 448 tokens: the encoder's
+    non-causal 1500 x 1500 and the cross-attention's 448 x 1500, where
+    the dK/dV launch walks every q tile of the padded scratch (MHA: a
+    cluster of one)."""
+    dt = getattr(torch, dtype)
+    H, hd = 8, 64
+    q = _rand((B, Sq, H, hd), 93, dt, cuda)
+    k, v = _rand((B, Skv, H, hd), 94, dt, cuda), _rand((B, Skv, H, hd), 95,
+                                                       dt, cuda)
+    do = _rand((B, Sq, H, hd), 96, dt, cuda)
+    from repro_torch.kernels import flash_attention as fa
+    o, lse = fa.flash_attention(q, k, v, causal=False, with_lse=True)
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, False)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, False)
+    for g, w in zip(got, want):
+        _assert_close(g, w, BWD_F32 if dtype == "float32" else BF16)
+
+
+# the enc-dec and VLM smokes: whisper's on flash (hd 16), llava's on
+# "ref" (hd 8 is no flash shape); a forward's kernel launches
+MODAL_SMOKES = {
+    "whisper-base-smoke": ("flash", lambda c: {
+        "flash_attention": c.encoder_layers + 2 * c.num_layers,
+        "rmsnorm": 2,
+        "add_rmsnorm": 2 * c.encoder_layers + 3 * c.num_layers}),
+    "llava-next-34b-smoke": ("ref", lambda c: {
+        "rmsnorm": 1, "add_rmsnorm": 2 * c.num_layers})}
+
+
+def _modal(cfg, B, cuda, seed):
+    """The family's modality stub for a batch of B, from ``seed``."""
+    key, n = (("frames", cfg.encoder_seq) if cfg.family == "encdec"
+              else ("patches", cfg.num_patches))
+    return {key: _rand((B, n, cfg.d_model), seed, torch.float32, cuda)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(MODAL_SMOKES))
+def test_encdec_and_vlm_prefill_and_decode_match_plain(cuda, arch):
+    """A 13-token prefill and 4 decode steps, f32, on the kernel path
+    against the plain path: logits and every cache leaf (the enc-dec's
+    cross k/v included); the forward launched each kernel of the path as
+    many times as its layers say."""
+    from repro_torch.models import api, get_config
+    impl, launches = MODAL_SMOKES[arch]
+    cfg = get_config(arch).replace(attn_impl=impl)
+    params = api.init(0, cfg, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 13), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(7))
+    batch = {"tokens": toks, **_modal(cfg, 2, cuda, 97)}
+    outs = []
+    for c in (cfg, cfg.replace(use_kernels=False)):
+        ops.reset_launches()
+        api.forward(params, c, batch)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        assert counts == (launches(c) if c is cfg else {})
+        cache = api.init_cache(c, 2, 48, device=cuda)
+        logits, cache = api.prefill(params, c, cache, batch)
+        steps = [logits]
+        for i in range(4):              # the same tokens on both paths
+            logits, cache = api.decode_step(params, c, cache, toks[:, i])
+            steps.append(logits)
+        outs.append((steps, cache))
+    (got, got_c), (want, want_c) = outs
+    for g, w in zip(got, want):
+        _assert_close(g, w, dict(atol=1e-4, rtol=1e-4))
+    for key in want_c:
+        _assert_close(got_c[key], want_c[key], dict(atol=1e-4, rtol=1e-4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(MODAL_SMOKES))
+def test_encdec_and_vlm_grads_through_the_kernels_match_plain(cuda, arch):
+    """f32 gradients of the loss (batch 2 x 64 tokens and the stub)
+    through the kernels' backward against the plain path's, each leaf
+    within 1e-4 of its max |g|; each backward kernel once per forward
+    call (whisper's flash backward in every encoder, self- and
+    cross-attention block)."""
+    from repro_torch.models import api, get_config
+    impl, launches = MODAL_SMOKES[arch]
+    cfg = get_config(arch).replace(attn_impl=impl)
+    params = api.init(0, cfg, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(8))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:],
+             **_modal(cfg, 2, cuda, 98)}
+    ops.reset_launches()
+    loss, got = _qwen_smoke_grads(params, cfg, batch)
+    torch.cuda.synchronize()
+    fwd = launches(cfg)
+    assert {k: v for k, v in ops.launch_counts().items() if v} == \
+        {**fwd, **{k + "_bwd": v for k, v in fwd.items()}}
+    want_loss, want = _qwen_smoke_grads(params, cfg.replace(use_kernels=False),
+                                        batch)
+    assert abs(float(loss) - float(want_loss)) < 1e-4
+    for g, w in zip(got, want):
+        err = float((g - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), err

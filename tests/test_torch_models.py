@@ -148,12 +148,17 @@ def test_prefill_cache_and_decode_match_jax(params, S):
     _close(tc["k"], jc["k"])
 
 
-@pytest.mark.parametrize("family", ["encdec", "vlm"])
-def test_other_families_raise(family):
-    """The families not ported yet raise; moe and hybrid run (their own
-    files)."""
-    cfg = get_config(ARCH).replace(family=family)
-    with pytest.raises(NotImplementedError, match=family):
+def test_unknown_family_raises():
+    """Every family of the reference runs (each in its own file); a family
+    that neither package has raises from ``api.module_for``, naming the
+    six."""
+    assert sorted(api._FAMILY) == sorted(japi._FAMILY) == [
+        "dense", "encdec", "hybrid", "moe", "ssm", "vlm"]
+    cfg = get_config(ARCH).replace(family="rwkv")
+    with pytest.raises(ValueError, match="rwkv") as err:
+        api.module_for(cfg)
+    assert all(f in str(err.value) for f in api._FAMILY)
+    with pytest.raises(ValueError, match="rwkv"):
         api.init(0, cfg, device="cpu")
 
 

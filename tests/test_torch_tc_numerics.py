@@ -242,25 +242,27 @@ def flash_bf16_p(q, k, v, causal=True):
 
 def flash_bwd_bf16(q, k, v, o, lse, do, causal=True):
     """The bf16 backward kernels' arithmetic: q, k, v, o, do bf16, lse
-    f32 -> (dq, dk, dv) bf16.  D = rowsum(dO O), S = Q K^T and dP = dO V^T
-    in f32; P = exp2(S scale log2 e - lse log2 e) under the top-left mask;
-    dS = P (dP - D) from the f32 P; then P and dS rounded to bf16 before
-    the three products, which sum in f32; each output rounded once."""
+    f32 -> (dq, dk, dv) bf16.  S = Q K^T and dP = dO V^T in f32; P =
+    exp2(S scale log2 e - lse log2 e) under the top-left mask; D = rowsum(P
+    dP) (its own launch, not rowsum(dO O) of the bf16 o, which is not
+    read); dS = P (dP - D) from the f32 P; then P and dS rounded to bf16
+    before the three products, which sum in f32; each output rounded
+    once."""
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
     G = H // K
     scale = 1.0 / math.sqrt(hd)
     log2e = 1.4426950408889634
     grp = (lambda t: t.float().reshape(B, Sq, K, G, hd))
-    qg, og, dog = grp(q), grp(o), grp(do)
+    qg, dog = grp(q), grp(do)
     kf, vf = k.float(), v.float()
-    d = (dog * og).sum(-1).permute(0, 2, 3, 1)              # (B,K,G,Sq)
     lse2 = (lse.float() * log2e).reshape(B, K, G, Sq)
     s = torch.einsum("bskgh,btkh->bkgst", qg, kf)
     p = torch.exp2(s * (scale * log2e) - lse2[..., None])
     if causal:
         p = p.masked_fill(~torch.ones(Sq, Skv, dtype=torch.bool).tril(), 0.0)
     dp = torch.einsum("bskgh,btkh->bkgst", dog, vf)
+    d = (p * dp).sum(-1)                                    # (B,K,G,Sq)
     ds = p * (dp - d[..., None])
     p16, ds16 = p.bfloat16().float(), ds.bfloat16().float()
     dv = torch.einsum("bkgst,bskgh->btkh", p16, dog)
@@ -337,6 +339,44 @@ def test_flash_bwd_with_bf16_p_and_ds_holds_bf16_tolerance(B, Sq, Skv, H, K,
                      *f32[:3])
     for g, w in zip(got, vjp(f32[3])):
         np.testing.assert_allclose(g.float().numpy(), np.asarray(w), **BF16)
+
+
+def test_flash_bwd_takes_d_from_p_where_keys_share_a_large_mean():
+    """Cross-attention over keys and values with a large common part
+    (whisper-base's decoder over 1500 encoder states): o is then about
+    the values' mean, and its bf16 rounding puts D = rowsum(dO o) off by
+    more than the spread of dP that dS = P (dP - D) keeps, so sum_j dS_j
+    is off zero and dQ = sum_j dS_j K_j carries that times the keys'
+    mean.  D = rowsum(P dP), as the kernels take it, keeps dQ several
+    times closer to f32 (jax.vjp of the reference)."""
+    B, Sq, Skv, H, hd = 1, 64, 1500, 2, 64
+    rng = np.random.default_rng(21)
+    q, do = (rng.standard_normal((B, Sq, H, hd)).astype(np.float32)
+             for _ in range(2))
+    k, v = ((4.0 * rng.standard_normal(hd)
+             + rng.standard_normal((B, Skv, H, hd))).astype(np.float32)
+            for _ in range(2))
+    q, k, v, do = (torch.from_numpy(a).bfloat16() for a in (q, k, v, do))
+    o = flash_bf16_p(q, k, v, causal=False)
+    lse = tref.flash_attention_lse_ref(q, k, v, False)
+    f32 = [jnp.asarray(t.float().numpy()) for t in (q, k, v, do)]
+    _, vjp = jax.vjp(lambda a, b, c: jref.flash_attention_ref(a, b, c, False),
+                     *f32[:3])
+    want = np.asarray(vjp(f32[3])[0])
+
+    def err(dq):
+        return float(np.linalg.norm(dq.float().numpy() - want)
+                     / np.linalg.norm(want))
+    got = err(flash_bwd_bf16(q, k, v, o, lse, do, causal=False)[0])
+    # the same arithmetic with D = rowsum(dO O) of the bf16 o
+    scale = 1.0 / math.sqrt(hd)
+    s = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
+    p = torch.exp(s - lse.float()[..., None])
+    dp = torch.einsum("bshd,bthd->bhst", do.float(), v.float())
+    d = (do.float() * o.float()).sum(-1).permute(0, 2, 1)
+    ds = (p * (dp - d[..., None])).bfloat16().float()
+    from_o = err(torch.einsum("bhst,bthd->bshd", ds, k.float()) * scale)
+    assert got < 0.02 and from_o > 3 * got, (got, from_o)
 
 
 def dkdv_work(B, H, K, Sq, Skv, causal=True):
